@@ -20,7 +20,7 @@ from skybox_rt_tpu.utils import image  # noqa: E402
 
 def main():
     rt = raster_bridge.render_scene_rt(
-        "vase", 128, 128, engine="pallas_bvh", camera="perspective")
+        "vase", 128, 128, engine="auto", camera="perspective")
     rgba = np.clip(rt * 255.0 + 0.5, 0, 255).astype(np.uint32)
     fb = ((rgba[..., 3] << 24) | (rgba[..., 0] << 16)
           | (rgba[..., 1] << 8) | rgba[..., 2]).astype(np.uint32)

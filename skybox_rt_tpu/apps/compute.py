@@ -1,14 +1,13 @@
-"""Compute / SIMT regression apps — TPU-native analogs of the reference's
-general-purpose regression suite (SURVEY §4.6).
+"""Compute / SIMT regression apps — array-program analogs of the
+reference's general-purpose regression suite (SURVEY §4.6).
 
 The reference validates its SIMT machine with a set of small GPGPU apps
 (tests/regression/{vecaddx,sgemmx,sgemm2x,conv3x,stencil3d,sort,diverge}
 and the dogfood op-conformance suite, tests/regression/dogfood/testcases.h).
-Each app here reproduces the same *math* with the idiomatic TPU mapping:
+Each app here reproduces the same *math* with the idiomatic XLA mapping:
 
-- per-task SIMT kernels      -> jitted elementwise / vmapped array ops (VPU)
-- sgemm inner-product loops  -> one MXU matmul (`preferred_element_type`)
-- sgemm2x __local_mem tiles  -> Pallas VMEM-blocked matmul kernel
+- per-task SIMT kernels      -> jitted elementwise / vmapped array ops
+- sgemm inner-product loops  -> one matmul at full float32 precision
 - divergent branches         -> predication (`jnp.where` / `jnp.select`)
 - data-dependent loop bounds -> prefix sums instead of per-lane loops
 - BAR/GBAR barriers          -> `lax.psum` collectives over the mesh
@@ -18,13 +17,9 @@ formulas); tests/test_compute_apps.py asserts equality.
 """
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 # ---------------------------------------------------------------------------
@@ -38,57 +33,20 @@ def vecadd(x, y):
 
 # ---------------------------------------------------------------------------
 # sgemmx — tests/regression/sgemmx/kernel.cpp:14-19 (naive row*col loop).
-# TPU-native: the whole loop nest is one MXU matmul.
+# The whole loop nest is one matmul; HIGHEST keeps float32 products (no
+# TF32), matching the reference's fp32 inner loop.
 # ---------------------------------------------------------------------------
 
 @jax.jit
 def sgemm(a, b):
-    return jnp.dot(a, b, preferred_element_type=jnp.float32)
-
-
-# ---------------------------------------------------------------------------
-# sgemm2x — tests/regression/sgemm2x/kernel.cpp:11-50: tiles of A/B staged
-# through __local_mem with __syncthreads.  TPU twin: a Pallas kernel that
-# stages (bm,bk)/(bk,bn) blocks in VMEM and accumulates over the k grid
-# axis — VMEM is the local memory, the grid the tile loop.
-# ---------------------------------------------------------------------------
-
-def _sgemm_kernel(a_ref, b_ref, o_ref):
-    @pl.when(pl.program_id(2) == 0)
-    def _init():
-        o_ref[...] = jnp.zeros_like(o_ref)
-
-    o_ref[...] += jnp.dot(a_ref[...], b_ref[...],
-                          preferred_element_type=jnp.float32)
-
-
-@functools.partial(jax.jit, static_argnames=("block", "interpret"))
-def sgemm_pallas(a, b, block=(128, 128, 128), interpret=False):
-    """Blocked MXU matmul; block=(bm, bn, bk) must divide the shapes."""
-    m, k = a.shape
-    k2, n = b.shape
-    assert k == k2, (a.shape, b.shape)
-    bm, bn, bk = block
-    assert m % bm == 0 and n % bn == 0 and k % bk == 0, (a.shape, b.shape, block)
-    return pl.pallas_call(
-        _sgemm_kernel,
-        grid=(m // bm, n // bn, k // bk),
-        in_specs=[
-            pl.BlockSpec((bm, bk), lambda i, j, kk: (i, kk)),
-            pl.BlockSpec((bk, bn), lambda i, j, kk: (kk, j)),
-        ],
-        out_specs=pl.BlockSpec((bm, bn), lambda i, j, kk: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m, n), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary")),
-        interpret=interpret,
-    )(a, b)
+    return jnp.dot(a, b, preferred_element_type=jnp.float32,
+                   precision=jax.lax.Precision.HIGHEST)
 
 
 # ---------------------------------------------------------------------------
 # conv3x — tests/regression/conv3x/kernel.cpp:20-35: 3x3 convolution over a
-# zero-padded (w+2, h+2) input.  TPU-native: nine shifted adds, which XLA
-# fuses into one VPU pass (the __local_mem weight staging is moot — the
+# zero-padded (w+2, h+2) input.  Nine shifted adds, which XLA fuses into
+# one elementwise pass (the __local_mem weight staging is moot — the
 # nine weights are scalars baked into the fused kernel).
 # ---------------------------------------------------------------------------
 
@@ -124,7 +82,7 @@ def stencil3d(vol):
 # ---------------------------------------------------------------------------
 # sort — tests/regression/sort/kernel.cpp:9-17: per-lane stable rank count
 # (pos = #{i : x[i] < x[j] or (x[i]==x[j] and i<j)}), scatter to dst[pos].
-# Already a data-parallel O(n^2) formulation; on TPU the count is one
+# Already a data-parallel O(n^2) formulation; the count is one
 # broadcast compare + row-sum, and the scatter one take-along-axis.
 # ---------------------------------------------------------------------------
 
@@ -141,7 +99,7 @@ def rank_sort(x):
 # ---------------------------------------------------------------------------
 # diverge — tests/regression/diverge/kernel.cpp:8-77: a cascade of
 # divergent branches, a data-dependent loop, a switch, selects and min/max.
-# The reference exercises the ipdom SPLIT/JOIN stack; the TPU mapping is
+# The reference exercises the ipdom SPLIT/JOIN stack; the array mapping is
 # full predication: every branch becomes jnp.where/jnp.select and the
 # `for (i < task_id) value += src[i]` loop an exclusive prefix sum.
 # ---------------------------------------------------------------------------

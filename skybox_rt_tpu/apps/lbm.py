@@ -1,6 +1,6 @@
 """lbm — Parboil D3Q19 lattice-Boltzmann (SURVEY §4: tests/opencl/lbm).
 
-TPU-native port of the reference's stream-collide kernel
+Array-native port of the reference's stream-collide kernel
 (/root/reference/tests/opencl/lbm/kernel.cl: performStreamCollide_kernel)
 with the GATHER (pull) layout its layout_config.h selects: each cell pulls
 distribution e from its opposite-direction neighbor, applies BGK collision

@@ -1,8 +1,8 @@
 """OpenCL/POCL benchmark-suite analogs (SURVEY §4: tests/opencl/).
 
 The reference runs a POCL port of Rodinia/NVIDIA OpenCL benchmarks on its
-SIMT machine.  Each function here is the TPU-native mapping of one app's
-kernel math; tests/test_opencl_apps.py oracles them against numpy (the
+SIMT machine.  Each function here is the array-program mapping of one
+app's kernel math; tests/test_opencl_apps.py oracles them against numpy (the
 hosts' verify loops).  Covered: saxpy, dotproduct, psum, transpose,
 blackscholes, nearn, kmeans, spmv, bfs, gaussian, sfilter, sgemm3.
 vecadd/sgemm/sgemm2/conv3/stencil/psort duplicate the regression apps
@@ -21,8 +21,8 @@ F32 = jnp.float32
 
 # ---------------------------------------------------------------------------
 # saxpy / dotproduct / psum / transpose — tests/opencl/{saxpy,dotproduct,
-# psum,transpose}: the elementwise / reduction / layout primitives.  On TPU
-# the tree-reduction kernels collapse to single jnp reductions (XLA emits
+# psum,transpose}: the elementwise / reduction / layout primitives.  The
+# tree-reduction kernels collapse to single jnp reductions (XLA emits
 # the tree) and transpose is a relayout the compiler fuses.
 # ---------------------------------------------------------------------------
 
@@ -49,7 +49,7 @@ def transpose(a):
 # ---------------------------------------------------------------------------
 # blackscholes — tests/opencl/blackscholes/BlackScholes.cl: the NVIDIA
 # sample.  Polynomial cumulative-normal approximation, call+put per option.
-# Pure VPU math, one fused elementwise pass over five input arrays.
+# Pure elementwise math, one fused pass over five input arrays.
 # ---------------------------------------------------------------------------
 
 _CND_A = (0.31938153, -0.356563782, 1.781477937, -1.821255978, 1.330274429)
@@ -96,7 +96,7 @@ def blackscholes_oracle(S, X, T, R, V):
 
 # ---------------------------------------------------------------------------
 # nearn — tests/opencl/nearn: per-record euclidean distance to a query
-# (lat/lng), host takes the min.  One broadcast + reduction on TPU.
+# (lat/lng), host takes the min.  One broadcast + reduction.
 # ---------------------------------------------------------------------------
 
 @jax.jit
@@ -108,16 +108,17 @@ def nearn(points, query):
 
 # ---------------------------------------------------------------------------
 # kmeans — tests/opencl/kmeans/kernel.cl: assignment step = argmin distance
-# over clusters; the host then recomputes centroids.  TPU: one (N, K)
-# distance matrix on the MXU-friendly quadratic expansion + segment_sum
-# centroid update.
+# over clusters; the host then recomputes centroids.  One (N, K)
+# distance matrix from the matmul-friendly quadratic expansion (float32
+# products: HIGHEST, no TF32) + segment_sum centroid update.
 # ---------------------------------------------------------------------------
 
 @jax.jit
 def kmeans_assign(points, centroids):
     """points (N, D), centroids (K, D) -> (N,) cluster ids."""
     d2 = (jnp.sum(points ** 2, 1)[:, None]
-          - 2.0 * points @ centroids.T
+          - 2.0 * jnp.dot(points, centroids.T,
+                          precision=jax.lax.Precision.HIGHEST)
           + jnp.sum(centroids ** 2, 1)[None, :])
     return jnp.argmin(d2, axis=1)
 
@@ -132,8 +133,7 @@ def kmeans_update(points, assign, k: int):
 
 
 # ---------------------------------------------------------------------------
-# spmv — tests/opencl/spmv: CSR sparse matrix-vector product.  TPU-native:
-# gather x by column index, multiply by values, segment-sum by row.
+# spmv — tests/opencl/spmv: CSR sparse matrix-vector product.  Gather x by column index, multiply by values, segment-sum by row.
 # ---------------------------------------------------------------------------
 
 @functools.partial(jax.jit, static_argnames=("num_rows",))
@@ -239,8 +239,7 @@ def back_substitute(U, c):
 # sfilter — tests/opencl/sfilter/kernel.cl:1-23: 3x3 convolution over the
 # image interior (the host launches with global_offset (1,1) and work size
 # (n-2, n-2), main.cc:223-225, so borders keep the zero-initialized dst).
-# On TPU the per-pixel gather becomes nine shifted slice-multiplies the VPU
-# fuses; the i0+i1+...+i8 accumulation order is preserved left-to-right
+# The per-pixel gather becomes nine shifted slice-multiplies XLA fuses; the i0+i1+...+i8 accumulation order is preserved left-to-right
 # (matching the host reference loop up to XLA FMA contraction).
 # ---------------------------------------------------------------------------
 
@@ -262,12 +261,14 @@ def sfilter(src, m):
 # ---------------------------------------------------------------------------
 # sgemm3 — tests/opencl/sgemm3/kernel.cl:1-36: local-memory-tiled matmul
 # (each workgroup stages A/B blocks in __local and barriers between block
-# loads).  The tiling/staging is exactly what XLA's MXU lowering does to a
-# plain dot, so the TPU-native form IS jnp.dot — the blocked schedule is
-# the compiler's job, not the kernel author's.
+# loads).  The tiling/staging is exactly what XLA's matmul lowering does
+# to a plain dot, so the array form IS jnp.dot — the blocked schedule is
+# the compiler's job, not the kernel author's.  HIGHEST keeps float32
+# products (no TF32).
 # ---------------------------------------------------------------------------
 
 @jax.jit
 def sgemm3(A, B):
     return jnp.dot(jnp.asarray(A, F32), jnp.asarray(B, F32),
-                   preferred_element_type=F32)
+                   preferred_element_type=F32,
+                   precision=jax.lax.Precision.HIGHEST)

@@ -4,13 +4,13 @@ The reference rasterizer is built entirely on cocogfx ``TFixed<16>`` (edge
 coefficients, ``FloatE``) and ``TFixed<24>`` (attributes / barycentrics,
 ``FloatA``) stored in int32 (graphics.h:24-33).  Its hot interpolation path
 uses a 48-bit product ``imadd(a,b,c,3) = ((int64)a*b >> 24) + c``
-(draw3d/kernel.cpp:48-54).  TPUs have no native int64, so we emulate the
-wide product with 16-bit limbs — bit-exact, pure int32/uint32 ops that map
-onto the VPU.
+(draw3d/kernel.cpp:48-54).  JAX runs with 64-bit types disabled, so we
+emulate the wide product with 16-bit limbs — bit-exact, pure int32/uint32
+ops.
 
 All helpers operate on raw int32 "data" values (the fixed-point bit
 patterns), never on wrapper objects: arrays-of-structs become
-structs-of-arrays on TPU.
+structs-of-arrays.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Per-draw render state — the TPU equivalent of the reference's DCR block.
+"""Per-draw render state — the JAX equivalent of the reference's DCR block.
 
 The reference configures its fixed-function units through 32-bit device
 configuration registers (vx_dcr_write -> per-unit DCRS tables,

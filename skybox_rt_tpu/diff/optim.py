@@ -2,11 +2,12 @@
 (SURVEY §5: the reference has neither — renders are seconds-long; the
 north-star inverse-rendering runs are not, so the framework adds the
 minimal production loop: NaN/inf gradient detection, retry-from-last-good
-parameter state, and orbax checkpointing).
+parameter state, and .npz checkpoints of the parameter tree).
 """
 from __future__ import annotations
 
 import dataclasses
+import glob
 import os
 
 import jax
@@ -56,24 +57,19 @@ def fit(loss_fn, params, *args, steps: int = 100, lr: float = 1e-2,
       * non-finite loss or gradients -> the step is rejected, parameters
         roll back to the last good state, and the learning rate is halved
         for subsequent steps (a bad step must not corrupt the run)
-      * checkpoint_dir enables orbax checkpoints every checkpoint_every
-        steps; a later fit() with the same dir resumes from the newest one
+      * checkpoint_dir enables .npz checkpoints of the parameter tree
+        every checkpoint_every steps; a later fit() with the same dir
+        resumes from the newest one
     """
     optimizer = optimizer or optax.adam(lr)
 
-    mngr = None
     start_step = 0
     if checkpoint_dir:
-        import orbax.checkpoint as ocp
-        mngr = ocp.CheckpointManager(
-            os.path.abspath(checkpoint_dir),
-            options=ocp.CheckpointManagerOptions(max_to_keep=3))
-        latest = mngr.latest_step()
+        latest = latest_checkpoint(checkpoint_dir)
         if latest is not None:
-            restored = mngr.restore(latest)
-            params = jax.tree_util.tree_map(jnp.asarray, restored["params"])
-            start_step = int(latest)
-            tracing.trace_log(1, f"resumed from checkpoint step {latest}")
+            start_step, params = load_checkpoint(latest, params)
+            tracing.trace_log(1, f"resumed from checkpoint step "
+                                 f"{start_step}")
 
     opt_state = optimizer.init(params)
     step = make_step(loss_fn, optimizer)
@@ -105,17 +101,49 @@ def fit(loss_fn, params, *args, steps: int = 100, lr: float = 1e-2,
         good_params = params
         losses.append(loss_val)
 
-        if mngr is not None and ((i + 1) % checkpoint_every == 0
-                                 or i + 1 == steps):
-            mngr.save(i + 1, args=_save_args(params))
-            mngr.wait_until_finished()
+        if checkpoint_dir and ((i + 1) % checkpoint_every == 0
+                               or i + 1 == steps):
+            save_checkpoint(checkpoint_dir, i + 1, params)
 
     return FitResult(params=params, losses=losses, bad_steps=bad_steps,
                      resumed_from=start_step)
 
 
-def _save_args(params):
-    import orbax.checkpoint as ocp
-    return ocp.args.Composite(
-        params=ocp.args.StandardSave(
-            jax.tree_util.tree_map(np.asarray, params)))
+#: checkpoints kept per directory (older ones are deleted)
+KEEP_CHECKPOINTS = 3
+
+
+def _checkpoint_files(checkpoint_dir: str) -> list:
+    return sorted(glob.glob(os.path.join(checkpoint_dir, "step_*.npz")))
+
+
+def latest_checkpoint(checkpoint_dir: str):
+    """Path of the newest checkpoint in checkpoint_dir, or None."""
+    files = _checkpoint_files(checkpoint_dir)
+    return files[-1] if files else None
+
+
+def save_checkpoint(checkpoint_dir: str, step: int, params) -> str:
+    """Write the parameter tree's leaves to step_<step>.npz (atomically:
+    a crash mid-write leaves the previous checkpoints intact)."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    leaves = jax.tree_util.tree_leaves(params)
+    path = os.path.join(checkpoint_dir, f"step_{step:09d}.npz")
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, step=np.int64(step),
+             **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)})
+    os.replace(tmp, path)
+    for old in _checkpoint_files(checkpoint_dir)[:-KEEP_CHECKPOINTS]:
+        os.remove(old)
+    return path
+
+
+def load_checkpoint(path: str, like):
+    """(step, params) from a checkpoint; `like` gives the tree structure
+    (the checkpoint stores the leaves in tree_leaves order)."""
+    treedef = jax.tree_util.tree_structure(like)
+    with np.load(path) as z:
+        leaves = [jnp.asarray(z[f"leaf_{i}"])
+                  for i in range(treedef.num_leaves)]
+        step = int(z["step"])
+    return step, jax.tree_util.tree_unflatten(treedef, leaves)

@@ -53,7 +53,7 @@ def _env_chunk(name: str, default: int) -> int:
 
 #: Prims advanced per sequential step of the hard-mode visibility
 #: reduction (visibility_slots).  Larger = fewer scan steps but bigger
-#: (CH, ts, ts) temporaries; 128 measured best at 512^2 (PERF.md).
+#: (CH, ts, ts) temporaries.
 #: Override with env SKYBOX_VIS_CHUNK **before importing** this module.
 VIS_CHUNK = _env_chunk("SKYBOX_VIS_CHUNK", 128)
 
@@ -196,7 +196,7 @@ def _barycentrics(e0, e1, e2):
 def render_tile_set(setup, tile_pids, origins, cfg: DiffRenderConfig):
     """Render a set of tiles: (T, M) pid lists + (T, 2) pixel origins ->
     (T, ts, ts, 4) RGBA tiles.  This is the unit of tile-parallel sharding
-    (each TPU chip renders its tile subset, skybox_rt_tpu.parallel)."""
+    (each device renders its tile subset, skybox_rt_tpu.parallel)."""
     ts = 1 << cfg.tile_logsize
     edges = setup["edges"]
     z0, z1, z2 = setup["z"][:, 0], setup["z"][:, 1], setup["z"][:, 2]
@@ -283,28 +283,8 @@ def _lex_min_comp(acc, x):
     return z, s
 
 
-def _resolve_vis_engine(engine: str, tile_logsize: int) -> str:
-    """auto -> the vectorized XLA chunk reduction: measured 3.86 ms vs
-    8.76 ms for the Pallas winner kernel in the same window at 512^2
-    (the kernel's per-prim scalar-extract loop loses to the fused
-    min/where reduction; both beat the old argmin/take_along_axis scan's
-    20.8 ms).  The kernel stays available via engine='pallas'; off-TPU
-    that falls back to the Mosaic interpreter (tests).  Tile sizes the
-    kernel can't block (pallas_vis.supported) fall back to 'xla' instead
-    of failing with a zero-size block error (ADVICE r3)."""
-    if engine in ("pallas", "pallas_interpret"):
-        from . import pallas_vis
-        if not pallas_vis.supported(tile_logsize):
-            return "xla"
-    if engine == "pallas" and jax.devices()[0].platform != "tpu":
-        return "pallas_interpret"
-    if engine == "auto":
-        return "xla"
-    return engine
-
-
 def visibility_slots(setup, tile_pids, origins, cfg: DiffRenderConfig,
-                     slots: int = 8, engine: str = "auto"):
+                     slots: int = 8):
     """K-slot visibility pass — NON-differentiable (the analog of the
     exact-int deferred pass 1, ops/deferred.py).
 
@@ -331,21 +311,13 @@ def visibility_slots(setup, tile_pids, origins, cfg: DiffRenderConfig,
     K = 1 if hard else slots
 
     if hard:
-        eng = _resolve_vis_engine(engine, cfg.tile_logsize)
-        if eng in ("pallas", "pallas_interpret"):
-            from . import pallas_vis
-            best_s = pallas_vis.visibility_hard(
-                edges, z, tile_pids, origins, cfg.tile_logsize,
-                cfg.depth_test, interpret=(eng == "pallas_interpret"))
-            return best_s[..., None], (best_s >= 0).astype(I32).max()
         # In hard mode the sequential write rule reduces to a pure
         # reduction: with depth test, the final write is the fragment with
         # the lexicographic-minimal (z, step) — strict `<` means the
         # earliest step wins ties; without, it's the max inside step.
         # Fully vectorized two-pass chunk reduction: zmin over the chunk,
         # then the min step attaining it — min/where only, NO argmin +
-        # take_along_axis (whose per-element gathers dominated the old
-        # 16-wide chunk scan: 20.8 of the 31.7 ms step at 512^2).
+        # take_along_axis (per-element gathers).
         CH = VIS_CHUNK
         BIG = jnp.int32(2**30)
 
@@ -517,21 +489,15 @@ def _quad_lerp(q, fx, fy):
 
 
 def _accumulate_rows(idx, val, num_rows: int):
-    """Scatter-add transpose Σ val[n] -> row idx[n].  On TPU with a
-    small table this is the Pallas one-hot-matmul accumulator (measured:
-    the XLA scatter costs ~10 of the 11.5 ms shade backward at 512^2);
-    elsewhere the XLA scatter."""
-    from . import pallas_texgrad
-    if (jax.devices()[0].platform == "tpu"
-            and pallas_texgrad.supported(num_rows, val.shape[-1])):
-        return pallas_texgrad.accumulate_rows(idx, val, num_rows)
+    """Scatter-add transpose Σ val[n] -> row idx[n] (an atomic scatter-add
+    on the GPU)."""
     return jnp.zeros((num_rows, val.shape[-1]), F32).at[idx].add(val)
 
 
 @jax.custom_vjp
 def gather_rows(table, idx):
     """table[(P, C)][idx] with the gather transpose routed through
-    _accumulate_rows (the autodiff scatter-add serializes on TPU)."""
+    _accumulate_rows."""
     return table[idx]
 
 
@@ -553,39 +519,12 @@ gather_rows.defvjp(_gather_rows_fwd, _gather_rows_bwd)
 def gather_tile_rows(table, idx):
     """Per-tile row gather: table (T, M, C)[t, idx[t, ...]] -> (T, ..., C).
 
-    On TPU with small M the FORWARD is also a one-hot matmul: a one-hot
-    f32 dot reproduces the gathered row bit-exactly (1.0*v summed with
-    exact zeros; Precision.HIGHEST keeps the f32 limbs exact on the
-    bf16 MXU) and replaces a per-pixel row gather with MXU work.
-
-    The transpose is the batched one-hot einsum over the SMALL per-tile
-    prim axis M — two-level accumulation: pixels -> tile slots here,
-    tile slots -> global prim rows via gather_rows.  ~50x fewer one-hot
-    FLOPs than a global-prim-axis accumulation."""
+    The transpose accumulates pixels into the SMALL per-tile prim axis M
+    — two-level accumulation: pixels -> tile slots here, tile slots ->
+    global prim rows via gather_rows."""
     T, M, C = table.shape
-    if jax.devices()[0].platform == "tpu" and M <= 512:
-        return _gather_tile_rows_matmul(table, idx)
     return jnp.take_along_axis(
         table, idx.reshape(T, -1)[..., None], axis=1
-    ).reshape(*idx.shape, C)
-
-
-def _gather_tile_rows_matmul(table, idx):
-    T, M, C = table.shape
-    # sanitize: the one-hot contraction turns a single non-finite record
-    # row (degenerate prim, e.g. w~0 giving inf edge coefficients) into
-    # 0*inf = NaN across EVERY pixel of the tile, while the
-    # take_along_axis fallback keeps it local — silent platform-dependent
-    # divergence (ADVICE r3).  Pixels actually referencing the degenerate
-    # row get a finite-but-arbitrary value instead of NaN; all other
-    # pixels now match the gather path exactly.
-    table = jnp.nan_to_num(table, nan=0.0, posinf=0.0, neginf=0.0)
-    onehot = (idx.reshape(T, -1)[..., None]
-              == jnp.arange(M, dtype=idx.dtype)[None, None]
-              ).astype(table.dtype)
-    return jnp.einsum(
-        "tnm,tmc->tnc", onehot, table,
-        precision=jax.lax.Precision.HIGHEST,
     ).reshape(*idx.shape, C)
 
 
@@ -594,12 +533,14 @@ def _gather_tile_rows_fwd(table, idx):
 
 
 def _gather_tile_rows_bwd(res, g):
+    """Scatter-add of the pixel cotangents into the tile's prim slots —
+    measured faster than a float32 one-hot einsum over the prim axis
+    (PERF.md, diff step on the H100)."""
     table, idx = res
     T, M, C = table.shape
-    gi = g.reshape(T, -1, C)
-    onehot = (idx.reshape(T, -1)[..., None]
-              == jnp.arange(M, dtype=idx.dtype)[None, None]).astype(g.dtype)
-    d = jnp.einsum("tnm,tnc->tmc", onehot, gi)
+    t = jnp.arange(T, dtype=idx.dtype)[:, None]
+    d = jnp.zeros((T, M, C), g.dtype).at[t, idx.reshape(T, -1)].add(
+        g.reshape(T, -1, C))
     return d, np.zeros(idx.shape, jax.dtypes.float0)
 
 
@@ -692,10 +633,8 @@ def shade_slots(setup, tile_pids, slot_steps, origins,
     # Per-slot loop, NOT a K-batched gather: batching the K slots into
     # one gather interleaves the slot streams per pixel — consecutive
     # gather indices then come from DIFFERENT prims, which destroys the
-    # uv/row coherence XLA's gather fast path needs (measured on chip:
-    # K=8 alpha 38.9 -> 50 ms/step when batched; the coherent per-k
-    # streams win, same lesson as the int path's quad-table rejection,
-    # docs/performance.md).  The K-cost lever is the SLOT COUNT instead:
+    # uv/row coherence XLA's gather fast path needs.  The K-cost lever
+    # is the SLOT COUNT instead:
     # measure_max_writes/auto_slots picks the scene's true K (shade work
     # is K-proportional).
     for k in range(K):
@@ -736,8 +675,7 @@ def shade_slots(setup, tile_pids, slot_steps, origins,
 
 
 def render_tile_set_deferred(setup, tile_pids, origins,
-                             cfg: DiffRenderConfig, slots: int = 8,
-                             engine: str = "auto"):
+                             cfg: DiffRenderConfig, slots: int = 8):
     """Deferred differentiable tile render: visibility + slot shading.
 
     Exact-equal to render_tile_set when slots >= the scene's max per-pixel
@@ -745,7 +683,7 @@ def render_tile_set_deferred(setup, tile_pids, origins,
     (tiles (T, ts, ts, 4), max_writes () i32 for overflow monitoring).
     """
     slot_steps, maxw = visibility_slots(setup, tile_pids, origins, cfg,
-                                        slots, engine=engine)
+                                        slots)
     return shade_slots(setup, tile_pids, slot_steps, origins, cfg), maxw
 
 
@@ -782,13 +720,11 @@ def _assemble(tiles, tile_xy, cfg: DiffRenderConfig):
     return canvas.transpose(0, 2, 1, 3, 4).reshape(Hp, Wp, 4)
 
 
-def render_deferred(params, static, cfg: DiffRenderConfig, slots: int = 8,
-                    engine: str = "auto"):
+def render_deferred(params, static, cfg: DiffRenderConfig, slots: int = 8):
     """Fast differentiable render (same contract as render()).
 
-    Two-pass: non-differentiable K-slot visibility (visibility_slots,
-    engine= selects the XLA scan or the Pallas winner kernel in hard
-    mode) + differentiable slot shading (shade_slots).  Matches render()
+    Two-pass: non-differentiable K-slot visibility (visibility_slots)
+    + differentiable slot shading (shade_slots).  Matches render()
     exactly when slots covers the scene's per-pixel write count; hard
     mode (no alpha blend, no edge softening) is always exact with its
     single winner slot.  Returns (image, max_writes).
@@ -796,8 +732,7 @@ def render_deferred(params, static, cfg: DiffRenderConfig, slots: int = 8,
     ts = 1 << cfg.tile_logsize
     setup = prim_setup(params, static["indices"], cfg)
     tiles, maxw = render_tile_set_deferred(
-        setup, static["tile_pids"], static["tile_xy"] * ts, cfg, slots,
-        engine=engine)
+        setup, static["tile_pids"], static["tile_xy"] * ts, cfg, slots)
     return _assemble(tiles, static["tile_xy"], cfg), maxw
 
 
@@ -807,8 +742,7 @@ def measure_max_writes(params, static, cfg: DiffRenderConfig) -> int:
     every write regardless of the slot capacity, so slots=1 suffices).
 
     The diff twin of the int path's measured blend_k (ops.deferred):
-    K-slot shade work is K-proportional (measured 51.2 -> 27.7 ms/step
-    from K=8 -> 4 at 512^2, PERF.md round 4), so pick
+    K-slot shade work is K-proportional, so pick
     ``slots = next_pow2(measure_max_writes(...))`` instead of a static 8
     and render_deferred stays exact at a fraction of the cost.  Re-check
     against render_deferred's max_writes output if the geometry moves

@@ -1,14 +1,14 @@
 """Tile binning: primitives -> per-tile primitive lists + raster-ready arrays.
 
-The analog of ``graphics::Binning`` (sim/common/gfxutil.cpp:103-276), with a
-TPU-native output layout: instead of the reference's serialized tilebuf /
+The analog of ``graphics::Binning`` (sim/common/gfxutil.cpp:103-276), with an
+array-native output layout: instead of the reference's serialized tilebuf /
 primbuf device buffers, binning produces
 
   * dense per-primitive arrays   edges (P,3,3) i32 fixed16,
                                  attribs (P,7,3) i32 fixed24
   * a padded per-tile pid matrix (T, M) i32 with -1 padding
 
-The padded matrix is what lets a TPU kernel scan primitives per tile in
+The padded matrix is what lets a device kernel scan primitives per tile in
 lockstep (vmap over tiles, sequential over the prim axis) while preserving
 the reference's per-pixel blend order: pids are stored in submission order,
 exactly like the reference's per-tile pid lists (gfxutil.cpp:244-249).
@@ -30,7 +30,7 @@ ATTR_Z, ATTR_R, ATTR_G, ATTR_B, ATTR_A, ATTR_U, ATTR_V = range(7)
 
 @dataclasses.dataclass
 class BinnedDrawcall:
-    """Raster-ready, TPU-consumable drawcall geometry."""
+    """Raster-ready, device-consumable drawcall geometry."""
     edges: np.ndarray        # (P, 3, 3) int32 fixed16: [edge][a, b, c]
     attribs: np.ndarray      # (P, 7, 3) int32 fixed24: [z r g b a u v][dx dy c]
     tile_xy: np.ndarray      # (T, 2) int32 tile coords (tx, ty)

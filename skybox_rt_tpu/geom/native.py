@@ -41,15 +41,19 @@ class _SbBinned(ctypes.Structure):
 
 
 def _build() -> bool:
+    # build beside the target and rename: processes that build at the
+    # same time never load a half-written library
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-shared", "-fPIC", "-std=c++17",
         "-ffp-contract=off", "-fno-fast-math",
-        "-o", _LIB, _SRC,
+        "-o", tmp, _SRC,
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
 
 

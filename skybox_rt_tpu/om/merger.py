@@ -1,6 +1,6 @@
 """Output merger: depth/stencil test -> blend -> masked framebuffer update.
 
-Port of OutputMerger (sim/simx/om_unit.cpp:24-154) reformulated for TPU:
+Port of OutputMerger (sim/simx/om_unit.cpp:24-154) reformulated for JAX:
 instead of per-pixel read-modify-write memory transactions, the merger is a
 pure function on framebuffer *tiles* — each tile is owned by exactly one
 program instance, so the reference's one-OM-unit-per-word ordering guarantee
@@ -47,8 +47,8 @@ def ds_carry_update(state: OMState, depth, cov, dsw):
 
     Applies DepthTencil::test + the masked ds write (om_unit.cpp:85-127)
     to a carried depth-stencil word; used by the deferred visibility scan
-    (ops.deferred) and its Pallas twin (ops.pallas_raster) so both stay
-    bit-identical to the immediate path.  Returns
+    (ops.deferred) so it stays bit-identical to the immediate path.
+    Returns
     (new dsw, contrib = cov & passed).
     """
     depth_en = state.ds.depth_enabled

@@ -62,8 +62,7 @@ def stripe_tiles(binned, n_devices: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _sharded_draw_fn(mesh, render_state, tile_logsize, blend_slots,
-                     visibility):
+def _sharded_draw_fn(mesh, render_state, tile_logsize, blend_slots):
     """Build (and cache) the jitted shard-mapped drawcall renderer for one
     (mesh, state) combination."""
     axis = tuple(mesh.axis_names)   # 1D or hosts x chips (mesh.make_mesh_2d)
@@ -81,7 +80,7 @@ def _sharded_draw_fn(mesh, render_state, tile_logsize, blend_slots,
         out_c, out_d, max_cnt = deferred.render_tiles_deferred(
             render_state, texels, edges, attribs, zattr, tile_pids,
             tile_xy, fbc_t[ty, tx], fbd_t[ty, tx], tile_logsize,
-            visibility=visibility, blend_slots=blend_slots)
+            blend_slots=blend_slots)
 
         v = tile_valid.astype(U32)[:, None, None]
         upd_c = jnp.zeros((gh, gw, ts, ts), U32).at[ty, tx].add(out_c * v)
@@ -115,7 +114,7 @@ def _sharded_draw_fn(mesh, render_state, tile_logsize, blend_slots,
 
 
 def render_drawcall_sharded(mesh, render_state, texels, binned,
-                            fb_color, fb_ds, visibility="xla", info=None,
+                            fb_color, fb_ds, info=None,
                             blend_k=None, overflow_out=None):
     """Tile-striped exact render of one drawcall over the mesh.
 
@@ -124,13 +123,6 @@ def render_drawcall_sharded(mesh, render_state, texels, binned,
     overflow_out: cached-K dispatch with frame-end overflow verification,
     same contract as ops.deferred.render_drawcall (VERDICT r3 #7)."""
     n = int(np.prod(mesh.devices.shape))
-    if visibility != "xla":
-        from ..ops import pallas_raster
-        if not pallas_raster.supported(render_state, binned.tile_logsize):
-            visibility = "xla"
-        elif (visibility == "pallas"
-              and jax.devices()[0].platform != "tpu"):
-            visibility = "pallas_interpret"
     if texels is None:
         texels = jnp.zeros((1,), jnp.uint32)
     # per-(binned, n) device-array cache — same rationale as
@@ -149,8 +141,7 @@ def render_drawcall_sharded(mesh, render_state, texels, binned,
     args = (texels,) + dev + (fb_color, fb_ds)
 
     if deferred.deferrable(render_state):
-        fn = _sharded_draw_fn(mesh, render_state, binned.tile_logsize, 0,
-                              visibility)
+        fn = _sharded_draw_fn(mesh, render_state, binned.tile_logsize, 0)
         fbc, fbd, _ = fn(*args)
         if info is not None:
             info["blend_k"] = 0
@@ -159,8 +150,7 @@ def render_drawcall_sharded(mesh, render_state, texels, binned,
     max_k = binned.tile_pids.shape[1]
     if blend_k is not None:
         k = min(max(int(blend_k), 1), max_k)
-        fn = _sharded_draw_fn(mesh, render_state, binned.tile_logsize, k,
-                              visibility)
+        fn = _sharded_draw_fn(mesh, render_state, binned.tile_logsize, k)
         fbc, fbd, max_cnt = fn(*args)
         if overflow_out is not None:
             overflow_out.append((k, max_cnt))
@@ -178,7 +168,7 @@ def render_drawcall_sharded(mesh, render_state, texels, binned,
         k = deferred.DEFAULT_BLEND_SLOTS
     while True:
         fn = _sharded_draw_fn(mesh, render_state, binned.tile_logsize,
-                              min(k, max_k), visibility)
+                              min(k, max_k))
         fbc, fbd, max_cnt = fn(*args)
         m = int(max_cnt)
         if m <= k or k >= max_k:
@@ -191,8 +181,7 @@ def render_drawcall_sharded(mesh, render_state, texels, binned,
 
 
 def render_trace_sharded(trace, width: int, height: int, mesh,
-                         tile_logsize: int = 5,
-                         visibility: str = "xla") -> np.ndarray:
+                         tile_logsize: int = 5) -> np.ndarray:
     """Full-frame tile-striped render (the sharded twin of
     ref.driver.render_trace; persistent z/color buffers across draws).
 
@@ -219,7 +208,7 @@ def render_trace_sharded(trace, width: int, height: int, mesh,
         info = {}
         hint = ks.get(d)
         fbc, fbd = render_drawcall_sharded(
-            mesh, rs, texels, binned, fbc, fbd, visibility=visibility,
+            mesh, rs, texels, binned, fbc, fbd,
             info=info, blend_k=hint or None,
             overflow_out=pending if hint else None)
         ks[d] = info["blend_k"]
@@ -227,5 +216,5 @@ def render_trace_sharded(trace, width: int, height: int, mesh,
     if pending and any(int(mc) > k for k, mc in pending):
         cache.pop((width, height, tile_logsize, "prepared"), None)
         return render_trace_sharded(trace, width, height, mesh,
-                                    tile_logsize, visibility)
+                                    tile_logsize)
     return out

@@ -2,14 +2,14 @@
 
 The reference's parallelism axes (SURVEY §2.7) map onto a JAX device mesh:
 
-  SIMT lanes            -> VPU vector lanes (implicit)
-  warps/cores           -> XLA intra-chip parallelism (implicit)
+  SIMT lanes            -> GPU lanes / vector lanes (implicit)
+  warps/cores           -> XLA intra-device parallelism (implicit)
   tile striping across raster units (raster_unit.cpp:224-227)
-                        -> the 'tiles' mesh axis across chips/hosts
+                        -> the 'tiles' mesh axis across devices/hosts
   cluster barriers      -> lax.psum collectives
 
 Multi-host bring-up uses jax.distributed; on one host the same code runs on
-the local chips (or on the virtual CPU mesh used by tests).
+the local devices (or on the virtual CPU mesh used by tests).
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 overlap (SURVEY §2.8: "explicit overlap of gradient psum with backward
 compute"; VERDICT r1 #9).
 
-Design (the DDP-bucketing recipe, TPU-native):
+Design (the DDP-bucketing recipe):
   * gradients are flattened and greedily packed into `n_buckets` roughly
     size-balanced buckets; each bucket is ONE concatenated psum instead of
     one psum per parameter — fewer, larger ICI collectives (latency is

@@ -4,7 +4,7 @@ The raster path stripes *screen tiles* across devices (tile_shard.py,
 mirroring raster_unit.cpp:224-227's tile striping).  The RT path's natural
 data-parallel axis is *rays* (SURVEY §2.7 "new-framework-only axes"):
 camera rays are contiguous-block-sharded over the mesh, the scene
-(triangles + BVH clusters + shading arrays) is replicated on every device,
+(triangles + BVH + shading arrays) is replicated on every device,
 and each device runs the full trace+shade body (tracer.trace_rays) on its
 block.  No cross-device communication is needed until the framebuffer is
 assembled — exactly the tile-ownership argument that makes the raster path
@@ -36,11 +36,11 @@ def render_sharded(scene: tracer.RTScene, cam: tracer.Camera,
     closest, occluded = tracer.make_intersectors(scene, cfg)
     o, d = tracer.camera_rays(cam, cfg.width, cfg.height)
 
-    # same pixel-tile ordering as tracer.render: each device's block is
-    # then a run of compact screen tiles (coherence for the clustered
-    # kernel AND balanced tile ownership)
+    # same pixel-tile ordering as tracer.make_frame_fn: each device's
+    # block is then a run of compact screen tiles (coherent warps AND
+    # balanced tile ownership)
     perm = inv = None
-    if (cfg.engine if cfg.use_bvh else "brute") == "pallas":
+    if tracer.resolve_engine(cfg) == "kernel":
         perm, inv = wavefront.tile_order_perm(cfg.width, cfg.height, 32)
         o, d = o[perm], d[perm]
 

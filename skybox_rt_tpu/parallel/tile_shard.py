@@ -3,8 +3,8 @@
 Sharding strategy (SURVEY §2.7-2.8, north-star config 5):
   * geometry (vertices, indices, per-prim setup) is REPLICATED — the same
     strategy as the reference, where every raster unit reads the shared
-    primitive buffer; on TPU the geometry processing is a tiny fraction of
-    raster work, so recomputing it per chip beats communicating it
+    primitive buffer; the geometry processing is a tiny fraction of
+    raster work, so recomputing it per device beats communicating it
   * screen tiles are SHARDED across the 'tiles' mesh axis — the analog of
     the reference's tile striping across raster units
     (raster_unit.cpp:109-114: unit i takes tiles i, i+N, ...)

@@ -1,6 +1,6 @@
 """Edge-function rasterization, vectorized over pixel grids.
 
-TPU-native reformulation of the reference's recursive tile->subtile->quad
+Array-native reformulation of the reference's recursive tile->subtile->quad
 descent (graphics.cpp:715-843).  On int32 two's-complement hardware the
 descent's incremental edge sums equal the direct evaluation
 ``E_k(x, y) = a_k*x + b_k*y + c_k  (mod 2^32)``, so a flat vectorized

@@ -1,17 +1,17 @@
 """Pure-JAX tile renderer — the behavioral oracle (the role simx plays for
 the reference RTL, SURVEY §4.2).
 
-Architecture (TPU-first reformulation of the reference draw path,
+Architecture (array-first reformulation of the reference draw path,
 call stack SURVEY §3.3-3.5):
 
   * binning (host) produces per-tile primitive lists in submission order
   * the framebuffer is viewed as a grid of tiles; each binned tile is
     processed independently (vmap) — the tile-parallel axis that stripes
     across raster units in the reference (raster_unit.cpp:224-227) and
-    across TPU chips in skybox_rt_tpu.parallel
+    across devices in skybox_rt_tpu.parallel
   * within a tile, primitives are scanned sequentially (lax.scan), which
     preserves the reference's per-pixel primitive order for blending and
-    depth ties; all pixels of the tile advance in lockstep on the VPU
+    depth ties; all pixels of the tile advance in lockstep
   * per primitive: edge evaluation + coverage -> barycentric gradients ->
     fixed24 attribute interpolation -> optional texture sample -> output
     merger masked update   (the vx_rast / vx_tex / vx_om pipeline fused

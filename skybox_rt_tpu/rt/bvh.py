@@ -33,6 +33,11 @@ I32 = jnp.int32
 
 LEAF_SIZE = 4
 STACK_DEPTH = 64
+#: Far-bound slack of the stackless box tests: 1 + 2*gamma(3) (Ize,
+#: "Robust BVH Ray Traversal", 2013).  Float rounding in the slab test
+#: can otherwise cull a box whose triangle MT still hits — a ray through
+#: a box edge, or a tie at the running best t.
+ROBUST_FAR = 1.0 + 2.0 * (3 * 2.0 ** -24) / (1 - 3 * 2.0 ** -24)
 
 
 @dataclasses.dataclass
@@ -110,8 +115,9 @@ class _Builder:
     """Shared node-array bookkeeping for the top-down host builders.
 
     All builders emit the same flat layout (and keep each subtree's prims
-    contiguous in prim_order, which build_clusters and the Pallas cluster
-    kernels rely on); they differ only in how a range is partitioned.
+    contiguous in prim_order, which the leaf-ordered triangle records of
+    ops.traverse rely on); they differ only in how a range is
+    partitioned.
     """
 
     def __init__(self, verts, faces):
@@ -218,8 +224,8 @@ def build_sah(verts: np.ndarray, faces: np.ndarray,
     area_L*n_L + area_R*n_R for every bin boundary, and the cheapest
     (axis, boundary) partitions the range.  Falls back to a median split
     when every centroid lands in one bin.  Same flat layout/contiguity
-    guarantees as build_median, so every traversal and the treelet
-    cluster cut work unchanged; typically 1.5-3x fewer ray-box/ray-tri
+    guarantees as build_median, so every traversal works unchanged;
+    typically 1.5-3x fewer ray-box/ray-tri
     tests than median split on irregular geometry.
     """
     b = _Builder(verts, faces)
@@ -348,127 +354,6 @@ def build_lbvh(verts: np.ndarray, faces: np.ndarray,
     return b.finish(leaf_size)
 
 
-def build_clusters(bvh: BVH, max_tris: int = 64):
-    """Cut the BVH into treelets of <= max_tris contiguous primitives.
-
-    Because build() stores leaf prims contiguously in prim_order, any
-    subtree covers a contiguous [first, first+count) range — a treelet is
-    just that range plus its AABB.  Used by the cluster-culled Pallas
-    kernel (ops.pallas_rt.closest_hit_clustered): a ray block tests the
-    treelet AABB once and skips the whole triangle range on a miss.
-
-    Returns dict(aabb (C, 8) f32 [min.xyz max.xyz 0 0], first (C,) i32,
-    count (C,) i32, order (P,) i32 = prim_order).
-    """
-    aabbs, firsts, counts = [], [], []
-
-    # subtree (first, count) for every node in ONE reverse sweep:
-    # build() appends children after parents, so a reverse index sweep
-    # sees both children before their parent (no recursion — the naive
-    # per-node recursion is quadratic and took minutes at 1M prims)
-    N = bvh.num_nodes
-    sub_first = bvh.node_first.astype(np.int64).copy()
-    sub_count = bvh.node_count.astype(np.int64).copy()
-    internal = bvh.node_count == 0
-    for i in range(N - 1, -1, -1):
-        if internal[i]:
-            l, r = bvh.node_left[i], bvh.node_right[i]
-            lo = min(sub_first[l], sub_first[r])
-            c = sub_count[l] + sub_count[r]
-            assert max(sub_first[l] + sub_count[l],
-                       sub_first[r] + sub_count[r]) - lo == c, \
-                "non-contiguous"
-            sub_first[i] = lo
-            sub_count[i] = c
-
-    def subtree_range(ni):
-        return int(sub_first[ni]), int(sub_count[ni])
-
-    stack = [0]
-    while stack:
-        ni = stack.pop()
-        f, c = subtree_range(ni)
-        if c <= max_tris or bvh.node_count[ni] > 0:
-            aabbs.append(np.concatenate([
-                bvh.node_min[ni], bvh.node_max[ni],
-                np.zeros(2, np.float32)]))
-            firsts.append(f)
-            counts.append(c)
-        else:
-            stack.append(bvh.node_right[ni])
-            stack.append(bvh.node_left[ni])
-    return {
-        "aabb": np.asarray(aabbs, np.float32),
-        "first": np.asarray(firsts, np.int32),
-        "count": np.asarray(counts, np.int32),
-        "order": bvh.prim_order.astype(np.int32),
-    }
-
-
-def build_block_set(bvh: BVH, tri_block: int = 256, top_size: int = 64):
-    """Cut the BVH into fixed-slot triangle blocks + a group-AABB pyramid.
-
-    The large-scene Pallas worklist kernel (ops.pallas_rt.closest_hit_bvh)
-    streams fixed-size blocks of `tri_block` record rows from HBM.  This
-    builder makes those blocks BVH treelets (build_clusters at tri_block
-    granularity), so every block has the TIGHT AABB of a real subtree —
-    the hierarchical analog of the raster unit's recursive extent reject
-    (/root/reference/sim/common/graphics.cpp:743-797): candidate work per
-    ray block shrinks with the tree cut instead of with flat
-    Morton-order chunks (VERDICT r3 #1).
-
-    On top of the blocks sits a pyramid of 8^l consecutive-block group
-    AABBs (blocks follow treelet order, so consecutive blocks are
-    spatially coherent).  The conservative prepass uses it to bound a
-    ray block's worklist LENGTH: a ray block whose exact block list
-    overflows the kernel's SMEM-resident entry table falls back to
-    coarser contiguous-range entries — always correct, at worst slower.
-    Levels stop once a level has <= top_size groups, so the top level
-    always fits any entry table with >= top_size slots.
-
-    Returns dict:
-      aabb_levels  [np (C_l, 6) f32]  level-0 = per-block AABBs
-      bcnt         (C,) i32           real triangles per block
-      slot_to_prim (C * tri_block,) i32  record row -> original prim (-1 pad)
-      tri_block, num_blocks
-    """
-    cl = build_clusters(bvh, max_tris=tri_block)
-    first = cl["first"].astype(np.int64)
-    count = cl["count"].astype(np.int64)
-    order = cl["order"].astype(np.int64)
-    aabb6 = cl["aabb"][:, :6].astype(np.float32)        # (C, 6)
-    C = first.shape[0]
-
-    slot_to_prim = np.full((C * tri_block,), -1, np.int64)
-    offs = np.concatenate([np.arange(c) for c in count]) \
-        if C else np.zeros((0,), np.int64)
-    b_idx = np.repeat(np.arange(C), count)
-    slot_to_prim[b_idx * tri_block + offs] = order[
-        np.concatenate([np.arange(f, f + c) for f, c in zip(first, count)])
-        if C else np.zeros((0,), np.int64)]
-
-    levels = [aabb6]
-    while levels[-1].shape[0] > top_size:
-        prev = levels[-1]
-        n = prev.shape[0]
-        npad = -(-n // 8) * 8
-        lo = np.full((npad, 3), np.inf, np.float32)
-        hi = np.full((npad, 3), -np.inf, np.float32)
-        lo[:n] = prev[:, 0:3]
-        hi[:n] = prev[:, 3:6]
-        levels.append(np.concatenate(
-            [lo.reshape(-1, 8, 3).min(1), hi.reshape(-1, 8, 3).max(1)],
-            axis=1))
-
-    return {
-        "aabb_levels": levels,
-        "bcnt": count.astype(np.int32),
-        "slot_to_prim": slot_to_prim.astype(np.int32),
-        "tri_block": tri_block,
-        "num_blocks": C,
-    }
-
-
 def _aabb_hit(bmin, bmax, orig, inv_dir, t_best):
     """Slab test; robust to inf inv_dir (axis-parallel rays)."""
     t0 = (bmin - orig) * inv_dir
@@ -553,17 +438,23 @@ def closest_hit(bvh_arrays, tri_arrays, orig, direction,
 
 def closest_hit_stackless(stackless_arrays, tri_arrays, orig, direction,
                           t_min=1e-4, t_max=jnp.inf,
-                          leaf_size: int = LEAF_SIZE):
-    """TPU-native lockstep traversal: preorder + escape links.
+                          leaf_size: int = LEAF_SIZE, t_lo=None, p_lo=None):
+    """Lockstep traversal in XLA: preorder + escape links.
 
     Per-ray state is ONE int32 node pointer (no stacks): at an interior
     node whose box the ray hits, descend to node+1 (preorder first child);
     otherwise jump to escape[node].  All rays advance together each
     iteration of a single while_loop — dense (R, ...) gathers + masked
-    Möller–Trumbore, exactly the shape the VPU wants (the SIMT-divergence-
-    as-predication rule of SURVEY §2.7 applied to traversal).
+    Möller–Trumbore (the SIMT-divergence-as-predication rule of SURVEY
+    §2.7 applied to traversal).  The closest hit is the lexicographic
+    (t, prim) minimum, so exact-t ties resolve to the lowest prim id, as
+    in intersect.closest_hit_bruteforce.  This is the plain reference of
+    the GPU kernel in ops.traverse, which walks the same arrays per lane.
 
     stackless_arrays: BVH.as_stackless_arrays(); rays (R, 3).
+    t_lo / p_lo: optional (R,) lexicographic lower bound — the result is
+    then the closest hit strictly AFTER (t_lo, p_lo), so repeated calls
+    enumerate every hit along a ray in (t, prim) order.
     Returns (prim (R,) i32 [-1 miss], t, u, v).
     """
     nmin, nmax, nfirst, ncount, escape, prim_order = stackless_arrays
@@ -592,7 +483,8 @@ def closest_hit_stackless(stackless_arrays, tri_arrays, orig, direction,
         t1 = (bmax - orig) * inv_d
         tn = jnp.max(jnp.minimum(t0, t1), axis=-1)
         tf = jnp.min(jnp.maximum(t0, t1), axis=-1)
-        hit_box = (jnp.maximum(tn, 0.0) <= jnp.minimum(tf, best_t)) & active
+        hit_box = (jnp.maximum(tn, 0.0)
+                   <= jnp.minimum(tf, best_t) * ROBUST_FAR) & active
 
         cnt = ncount[nc]
         is_leaf = cnt > 0
@@ -604,16 +496,18 @@ def closest_hit_stackless(stackless_arrays, tri_arrays, orig, direction,
         h, t, u, v = intersect.moller_trumbore(
             orig[:, None], direction[:, None],
             v0[pids], e1[pids], e2[pids], t_min, jnp.inf)
-        h = h & pm & (t < best_t[:, None])
-        t_m = jnp.where(h, t, jnp.inf)
-        k_best = jnp.argmin(t_m, axis=1)
-        rr = jnp.arange(R)
-        cand_t = t_m[rr, k_best]
-        better = cand_t < best_t
-        best_t = jnp.where(better, cand_t, best_t)
-        best_p = jnp.where(better, pids[rr, k_best], best_p)
-        best_u = jnp.where(better, u[rr, k_best], best_u)
-        best_v = jnp.where(better, v[rr, k_best], best_v)
+        h = h & pm
+        for k in range(leaf_size):
+            tk, pk = t[:, k], pids[:, k]
+            better = h[:, k] & ((tk < best_t)
+                                | ((tk == best_t) & (pk < best_p)))
+            if t_lo is not None:
+                better = better & ((tk > t_lo)
+                                   | ((tk == t_lo) & (pk > p_lo)))
+            best_t = jnp.where(better, tk, best_t)
+            best_p = jnp.where(better, pk, best_p)
+            best_u = jnp.where(better, u[:, k], best_u)
+            best_v = jnp.where(better, v[:, k], best_v)
 
         descend = hit_box & ~is_leaf
         nxt = jnp.where(descend, node + 1, escape[nc])
@@ -632,7 +526,7 @@ def closest_hit_stackless(stackless_arrays, tri_arrays, orig, direction,
 def any_hit(bvh_arrays, tri_arrays, orig, direction, t_min=1e-4, t_max=1.0,
             leaf_size: int = LEAF_SIZE, stack_depth: int = STACK_DEPTH):
     """Occlusion query via full closest-hit traversal (the per-ray-stack
-    path has no early-out; prefer any_hit_stackless on TPU)."""
+    path has no early-out; prefer any_hit_stackless)."""
     prim, t, _, _ = closest_hit(bvh_arrays, tri_arrays, orig, direction,
                                 t_min, t_max, leaf_size, stack_depth)
     return prim >= 0
@@ -668,7 +562,8 @@ def any_hit_stackless(stackless_arrays, tri_arrays, orig, direction,
         t1 = (bmax - orig) * inv_d
         tn = jnp.max(jnp.minimum(t0, t1), axis=-1)
         tf = jnp.min(jnp.maximum(t0, t1), axis=-1)
-        hit_box = (jnp.maximum(tn, 0.0) <= jnp.minimum(tf, tmax_arr)) & active
+        hit_box = (jnp.maximum(tn, 0.0)
+                   <= jnp.minimum(tf, tmax_arr) * ROBUST_FAR) & active
 
         cnt = ncount[nc]
         is_leaf = cnt > 0

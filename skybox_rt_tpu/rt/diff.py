@@ -131,7 +131,7 @@ def topk_plane_hits(verts, faces, o, d, K: int, t_min=1e-4, t_max=jnp.inf,
     Brute force over (R, P) — the soft path targets inverse-rendering
     scenes (small P, small images); selection is discrete and detached
     either way, so a kernel-accelerated enumeration
-    (ops.pallas_rt.closest_hit_bvh_after) can replace this for large
+    (ops.traverse, mode='after') can replace this for large
     scenes without touching the gradient math.
     """
     tri = intersect.triangle_arrays(verts, faces)

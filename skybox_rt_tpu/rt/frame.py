@@ -3,25 +3,29 @@
 Replaces raster_bridge's eager per-draw loop + O(rays x prims)
 submission-order scan for translucent drawcalls with ONE jitted frame:
 
-  * opaque drawcalls with an ordering-extreme depth func run the
-    hierarchical BVH worklist kernel once (ops.pallas_rt.closest_hit_bvh)
-    and composite through the same winner math as the bridge;
+  * opaque drawcalls with an ordering-extreme depth func run one
+    closest-hit BVH walk and composite through the same winner math as
+    the bridge;
   * every other drawcall (blended, depth-func ALWAYS/EQUAL/..., depth
-    test off) runs the K-SLOT ENUMERATION: K repeated
-    ops.pallas_rt.closest_hit_bvh_after walks with a lexicographic
-    (t, slot) carry collect EVERY fragment along each ray (exact-t ties
-    included), the slots are sorted back to SUBMISSION order (original
-    prim id) by a small compare-exchange network, and the OM carry
+    test off) runs the K-SLOT ENUMERATION: K repeated "closest after"
+    walks with a lexicographic (t, prim) carry collect EVERY fragment
+    along each ray (exact-t ties included), the slots are sorted back to
+    SUBMISSION order (original prim id) by a small compare-exchange
+    network, and the OM carry
     (depth test -> depth write -> blend -> masked write) replays over
     the K slots — the RT port of the deferred raster K-slot design
     (ops/deferred.py:355-434), reproducing om_unit.cpp:24-154 fragment
     semantics in float.
 
+The walks run on the device's traversal route (runtime.device.rt_engine):
+the GPU kernel (ops.traverse) or its XLA reference, the stackless walk
+(rt.bvh.closest_hit_stackless).
+
 Overflow contract (the deferred path's pattern): a draw with K < P runs
 one PROBE walk; any ray still hitting means fragments were dropped.  The
 probe counts ride the frame output as a per-draw array, verified by the
-caller AFTER the frame (one readback — never a mid-frame sync, PERF.md
-poison pill); on overflow the draw's K doubles and the frame recompiles
+caller AFTER the frame (one readback — never a mid-frame sync); on
+overflow the draw's K doubles and the frame recompiles
 (hint cached per trace, so steady-state rendering never overflows).
 
 Protocol: the whole frame is one dispatch, matching the reference's
@@ -36,8 +40,9 @@ import jax
 import jax.numpy as jnp
 
 from ..core import constants as C
+from ..ops import traverse
 from ..texture import mipmap
-from ..ops import pallas_rt
+from . import bvh as bvh_mod
 from . import raster_bridge as rb
 
 F32 = jnp.float32
@@ -53,19 +58,18 @@ _EXTREME_FUNCS = (C.CGL_COMPARE_LESS, C.CGL_COMPARE_LEQUAL,
 #: K_true = 1, where a fixed default of 4 wasted 3 walks per draw).
 _DEFAULT_K = 1
 #: Blended/ordering-free draws at or below this prim count skip the
-#: K-slot kernel walks and run the exact vectorized submission-order
-#: scan (raster_bridge._scan_drawcall_jit math) inside the same jit.
-#: Measured sweep on chip (vase 512^2, scripts/rt_probe2_r5.py, honest
-#: D2H timing): cutoff 0 -> 158.4 ms, cutoff 2 -> 144.9 ms, cutoff 64
-#: -> 527.0 ms — each sequential scan STEP costs several ms at 512^2,
-#: so only the 2-prim full-screen quads beat their own K-slot walks.
+#: K-slot walks and run the exact vectorized submission-order scan
+#: (raster_bridge._scan_drawcall_jit math) inside the same jit.  Each
+#: sequential scan STEP costs a full-frame pass, so only the 2-prim
+#: full-screen quads beat their own K-slot walks.
 _SCAN_MAX_PRIMS = 2
 _BIG_PRIM = jnp.int32(2 ** 30)
 
 # (trace id, draw index) -> measured slot count K (the RT twin of the
 # deferred path's blend_k hint)
 _K_HINTS: dict = {}
-# (trace id, w, h, start, end, k tuple, sub) -> (jitted frame, arrays, rays)
+# (trace id, w, h, start, end, k tuple, engine, ...) -> (jitted frame,
+# arrays, rays, metas)
 _FRAME_CACHE: dict = {}
 
 
@@ -74,12 +78,12 @@ def _trace_key(trace):
 
 
 def _build_plan(trace, width: int, height: int, start_draw: int,
-                end_draw: int, on_stencil: str, k_hints):
-    """Host-side prep: per-draw statics + device arrays + BVH block sets.
+                end_draw: int, on_stencil: str, k_hints, engine: str):
+    """Host-side prep: per-draw statics + device arrays + BVHs.
 
     Statics mirror the bridge's _scan_statics (the jit cache key / DCR
     analog); arrays are the jit INPUTS so XLA keeps them device-resident
-    across frames (the PERF.md re-upload lesson)."""
+    across frames instead of re-uploading them per call)."""
     plan = []
     for di, dc in enumerate(trace.drawcalls[start_draw:end_draw]):
         st = dc.states
@@ -106,9 +110,7 @@ def _build_plan(trace, width: int, height: int, start_draw: int,
         winner = (not st.blend_enabled and st.depth_test
                   and st.depth_func in _EXTREME_FUNCS)
         scan = (not winner) and P <= _SCAN_MAX_PRIMS
-        blocks = None
-        if not scan:
-            blocks = rb._engine_prep(tri, "pallas_bvh")["blocks"]
+        prep = None if scan else rb._engine_prep(tri, engine)
 
         if st.texture_enabled:
             tex = trace.textures[dc.texture_id]
@@ -144,13 +146,13 @@ def _build_plan(trace, width: int, height: int, start_draw: int,
                     np.asarray(geo["color"], np.float32)[idx]),
                 "uvv": jnp.asarray(np.asarray(geo["uv"], np.float32)[idx]),
             })
+        elif engine == "kernel":
+            arrays["scene"] = {k: prep["scene"][k] for k in
+                               ("nodes_f", "nodes_i", "tris", "tri_prim")}
         else:
-            arrays.update({
-                "tri": blocks["tri"],
-                "bcnt": blocks["bcnt"],
-                "s2p": blocks["s2p"],
-                "levels": list(blocks["levels"]),
-            })
+            arrays.update({"stackless": prep["stackless"],
+                           "v0": prep["v0"], "e1": prep["e1"],
+                           "e2": prep["e2"]})
         meta = {
             "draw_index": di,
             "statics": statics,
@@ -160,8 +162,9 @@ def _build_plan(trace, width: int, height: int, start_draw: int,
             "far_d": float(tri[..., 2].max()) + 1.0,
             "K": k,
             "P": P,
-            "tri_block": blocks["tri_block"] if blocks else 0,
-            "num_blocks": blocks["num_blocks"] if blocks else 0,
+            "num_nodes": (int(prep["stackless"][0].shape[0])
+                          if prep else 0),
+            "leaf_size": prep["leaf_size"] if prep else 0,
         }
         plan.append((meta, arrays))
     return plan
@@ -236,34 +239,48 @@ def _om_replay(meta, arr, slots, zbuf, color):
     return zbuf, color
 
 
-def make_frame_fn(trace, width: int, height: int, *, sub: int = 2,
-                  interpret=None, start_draw: int = 0,
+def _walk(meta, arr, engine, interpret, o, d, t_lo=None, p_lo=None):
+    """One BVH walk of the draw: closest hit, or with (t_lo, p_lo) the
+    next hit after that lexicographic bound.  Returns (prim, t, u, v)."""
+    if engine == "kernel":
+        scene = dict(arr["scene"], num_nodes=meta["num_nodes"],
+                     leaf_size=meta["leaf_size"])
+        return traverse.traverse(
+            scene, o, d, mode="closest" if t_lo is None else "after",
+            t_min=1e-6, t_lo=t_lo, prim_lo=p_lo, interpret=interpret)
+    return bvh_mod.closest_hit_stackless(
+        arr["stackless"], (arr["v0"], arr["e1"], arr["e2"]), o, d,
+        t_min=1e-6, leaf_size=meta["leaf_size"], t_lo=t_lo, p_lo=p_lo)
+
+
+def make_frame_fn(trace, width: int, height: int, *, engine=None,
+                  interpret: bool = False, start_draw: int = 0,
                   end_draw: int = 2 ** 31, on_stencil: str = "raise"):
     """Build the single-dispatch frame function for one trace.
 
+    engine: "kernel" | "bvh" | None (the device's route,
+    runtime.device.rt_engine); interpret runs the kernel in the Pallas
+    interpreter (tests).
     Returns (frame, arrays, rays, metas): call frame(arrays, nx, ny) ->
     (zbuf, color, overflow) with everything device-resident; overflow is
     a (num probed draws,) i32 of rays whose fragments exceeded K (verify
     AFTER readback; see module docstring)."""
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
+    if engine is None:
+        from ..runtime import device
+        engine = device.rt_engine()
+    if engine not in ("kernel", "bvh"):
+        raise ValueError(f"unknown rt.frame engine {engine!r}")
     tkey = _trace_key(trace)
     hints = {di: k for (tk, di), k in _K_HINTS.items() if tk == tkey}
     plan = _build_plan(trace, width, height, start_draw, end_draw,
-                       on_stencil, hints)
+                       on_stencil, hints, engine)
     metas = [m for m, _ in plan]
     ckey = (tkey, width, height, start_draw, min(end_draw, 2 ** 31),
             tuple((m["draw_index"], m["mode"], m["K"]) for m in metas),
-            sub, bool(interpret), on_stencil, _SCAN_MAX_PRIMS)
+            engine, bool(interpret), on_stencil, _SCAN_MAX_PRIMS)
     cached = _FRAME_CACHE.get(ckey)
     if cached is not None:
         return cached
-
-    def _blocks(meta, arr):
-        return {"tri": arr["tri"], "bcnt": arr["bcnt"], "s2p": arr["s2p"],
-                "levels": arr["levels"], "tri_block": meta["tri_block"],
-                "num_blocks": meta["num_blocks"],
-                "num_prims": meta["P"]}
 
     def frame(arrays, nx, ny):
         R = nx.shape[0]
@@ -281,16 +298,13 @@ def make_frame_fn(trace, width: int, height: int, *, sub: int = 2,
                     arr["zw"], arr["col"], arr["uvv"], arr["img"],
                     nx, ny, zbuf, color)
                 continue
-            blocks = _blocks(meta, arr)
             if meta["mode"] == "winner":
                 if meta["farthest"]:
                     o = dirs * meta["far_d"]
                     d = -dirs
                 else:
                     o, d = eye, dirs
-                prim, t, u, v = pallas_rt.closest_hit_bvh(
-                    o, d, blocks, t_min=1e-6, sub=sub,
-                    interpret=interpret)
+                prim, t, u, v = _walk(meta, arr, engine, interpret, o, d)
                 zbuf, color = rb._winner_composite_jit(
                     meta["statics"], True, arr["idx"],
                     jnp.zeros((arr["zattr"].shape[0],), F32),
@@ -298,22 +312,20 @@ def make_frame_fn(trace, width: int, height: int, *, sub: int = 2,
                     arr["img"], prim, u, v, zbuf, color)
                 continue
 
-            # K-slot enumeration: worklists once, K (+1 probe) walks
+            # K-slot enumeration: K (+1 probe) "closest after" walks
             K, P = meta["K"], meta["P"]
-            wk = pallas_rt.bvh_worklists(eye, dirs, blocks, sub=sub)
             tlo = jnp.full((R,), -jnp.inf, F32)
-            slo = jnp.full((R,), -1, I32)
+            plo = jnp.full((R,), -1, I32)
             slots = []
             probe = K < P
             for k in range(K + (1 if probe else 0)):
-                slot, prim, t, u, v = pallas_rt.closest_hit_bvh_after(
-                    blocks, wk, tlo, slo, t_min=1e-6,
-                    interpret=interpret)
+                prim, t, u, v = _walk(meta, arr, engine, interpret, eye,
+                                      dirs, t_lo=tlo, p_lo=plo)
                 if k < K:
                     slots.append((prim, t, u, v))
                 else:
                     overflow.append(jnp.sum((prim >= 0).astype(I32)))
-                tlo, slo = t, slot
+                tlo, plo = t, prim
             slots = _sort_slots_by_prim(slots) if K > 1 else slots
             zbuf, color = _om_replay(meta, arr, slots, zbuf, color)
 
@@ -335,8 +347,8 @@ def make_frame_fn(trace, width: int, height: int, *, sub: int = 2,
 
 
 def render_trace_rt_fused(trace, width: int, height: int, *,
-                          sub: int = 2, interpret=None, start_draw: int = 0,
-                          end_draw: int = 2 ** 31,
+                          engine=None, interpret: bool = False,
+                          start_draw: int = 0, end_draw: int = 2 ** 31,
                           on_stencil: str = "raise") -> np.ndarray:
     """Render a CGLTrace through the compiled frame, with the deferred
     overflow-retry loop (doubling K for any draw whose probe fired).
@@ -344,7 +356,7 @@ def render_trace_rt_fused(trace, width: int, height: int, *,
     tkey = _trace_key(trace)
     for _ in range(8):
         frame, arrays, rays, metas = make_frame_fn(
-            trace, width, height, sub=sub, interpret=interpret,
+            trace, width, height, engine=engine, interpret=interpret,
             start_draw=start_draw, end_draw=end_draw,
             on_stencil=on_stencil)
         zbuf, color, ovf = frame(arrays, *rays)

@@ -8,7 +8,8 @@ reuses the texture/OM stages.
 
 Layout: rays and triangles are structure-of-arrays float32; the brute-force
 closest-hit here is the correctness oracle for the BVH traversal (the same
-jnp-reference ↔ optimized-path pattern as ref ↔ Pallas, SURVEY §4.2).
+jnp-reference ↔ optimized-path pattern as ref ↔ deferred, SURVEY §4.2;
+the GPU traversal kernel, ops.traverse, is tested against it).
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ def closest_hit_bruteforce(orig, direction, v0, e1, e2,
 
     Returns (prim_id (R,) int32 [-1 = miss], t, u, v).  O(R*P) — the
     correctness oracle and the fast path for small scenes (dense compute
-    maps perfectly onto the VPU with zero divergence).
+    maps onto vector lanes with zero divergence).
     """
     hit, t, u, v = moller_trumbore(
         orig[:, None, :], direction[:, None, :],

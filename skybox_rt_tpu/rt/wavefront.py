@@ -1,13 +1,12 @@
 """Wavefront helpers: ray sorting for traversal coherence (SURVEY §5
 "long-context" note: multi-bounce = loop with re-compaction).
 
-On TPU every lane computes every iteration regardless of divergence, so
-classic active-ray *compaction* buys nothing by itself — what matters is
-GATHER COHERENCE: rays that traverse the same BVH nodes should share a
-(8, 128) tile so the lockstep traversal (rt.bvh.closest_hit_stackless)
-visits fewer distinct nodes per step and the blocked kernel
-(ops.pallas_rt) prunes better once cluster culling lands.  After a bounce
-scatters directions, re-sorting restores that coherence.
+What matters for traversal is COHERENCE: rays that traverse the same
+BVH nodes should share a warp, so the lanes of the GPU kernel
+(ops.traverse) walk similar paths and gather the same node and triangle
+records, and the lockstep walk (rt.bvh.closest_hit_stackless) visits
+fewer distinct nodes per step.  After a bounce scatters directions,
+re-sorting restores that coherence.
 
 Sort key: direction octant (3 bits) then 30-bit Morton code of the
 quantized origin — the standard wavefront-path-tracer binning.

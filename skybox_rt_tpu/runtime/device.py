@@ -1,8 +1,8 @@
 """Device facade — the public runtime API (vortex.h analog, SURVEY §2.2 H1).
 
 The reference exposes open/caps/alloc/copy/start/ready_wait/dcr_write
-(runtime/include/vortex.h:74-139).  On TPU, JAX owns memory and execution,
-so the equivalents are:
+(runtime/include/vortex.h:74-139).  Under JAX, JAX owns memory and
+execution, so the equivalents are:
 
   vx_dev_open / vx_dev_caps      -> Device() / Device.caps
   vx_mem_alloc + vx_copy_to_dev  -> Device.upload (with access validation,
@@ -11,6 +11,9 @@ so the equivalents are:
   vx_dcr_write                   -> RenderState construction (core.state)
   vx_start + vx_ready_wait       -> Device.run (dispatch + block)
   vx_mpm_query / vx_dump_perf    -> Device.perf / Device.dump_perf
+
+It is also the one place that picks a compute route for the device:
+rt_engine() names the ray-traversal engine the tracer runs by default.
 """
 from __future__ import annotations
 
@@ -26,6 +29,24 @@ from . import perf as perf_mod
 
 class DeviceError(RuntimeError):
     pass
+
+
+#: ray-traversal engine per platform: the compiled GPU kernel
+#: (ops.traverse) on a CUDA device, the XLA stackless walk elsewhere
+RT_ENGINES = {"gpu": "kernel", "cpu": "bvh"}
+
+
+def rt_engine(platform: str | None = None) -> str:
+    """The traversal engine for `platform` (default: JAX's first device).
+
+    Never picks the Pallas interpreter — interpret mode is reached only
+    through an explicit argument (tests)."""
+    platform = platform or jax.devices()[0].platform
+    try:
+        return RT_ENGINES[platform]
+    except KeyError:
+        raise DeviceError(
+            f"no ray-traversal route for platform {platform!r}") from None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,7 +3,7 @@
 Exact vectorized port of the reference sampler (sim/common/graphics.cpp:36-314)
 operating on fixed-point u/v with TEX_FXD_FRAC = 23 fraction bits.  The
 texture memory model is a flat mip-chain buffer per stage (viewed at the
-texel stride), the TPU equivalent of the reference's tcache reads — texel
+texel stride), the JAX equivalent of the reference's tcache reads — texel
 fetches become XLA gathers over a device-resident array.
 
 Differentiability note: the exact-int path is for golden parity; the
@@ -159,8 +159,8 @@ def make_texel_quad_array(st: TextureState, texels: np.ndarray) -> np.ndarray:
     """(N,) uint32 flat mip chain -> (N, 4) uint32 quad table whose row i
     holds [t00, t01, t10, t11] = the 2x2 bilinear footprint anchored at
     texel i of its mip level (see quad_supported).  4x the HBM bytes for
-    1/4 the gather rows — the TPU trade (gathers are row-bound, HBM is
-    cheap next to them)."""
+    1/4 the gather rows (gathers are row-bound, HBM bytes are cheap next
+    to them)."""
     stride = C.TEX_FORMAT_STRIDE[st.format]
     flat = np.asarray(texels, np.uint32)
     out = np.zeros((flat.shape[0], 4), np.uint32)

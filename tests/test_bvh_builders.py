@@ -152,45 +152,3 @@ def test_morton_codes_locality():
     # the two near-origin points are adjacent after sorting
     p0, p2 = np.flatnonzero(perm == 0)[0], np.flatnonzero(perm == 2)[0]
     assert abs(int(p0) - int(p2)) == 1
-
-
-def test_block_set_invariants():
-    """build_block_set: slots cover every prim exactly once, per-block
-    AABBs contain their triangles, and the 8^l group pyramid contains
-    its children."""
-    rng = np.random.default_rng(7)
-    verts = rng.normal(size=(300, 3)).astype(np.float32)
-    faces = rng.integers(0, 300, size=(900, 3)).astype(np.int64)
-    bvh = bvh_mod.build(verts, faces, method="sah")
-    bs = bvh_mod.build_block_set(bvh, tri_block=32, top_size=4)
-
-    C = bs["num_blocks"]
-    s2p = bs["slot_to_prim"]
-    assert s2p.shape[0] == C * 32
-    real = s2p[s2p >= 0]
-    assert np.array_equal(np.sort(real), np.arange(900))   # exact cover
-    # per-block counts match the slot map
-    per_block = (s2p.reshape(C, 32) >= 0).sum(1)
-    assert np.array_equal(per_block, bs["bcnt"])
-    assert (bs["bcnt"] >= 1).all() and (bs["bcnt"] <= 32).all()
-
-    # block AABBs contain their triangles
-    tri = verts[faces]
-    lvl0 = bs["aabb_levels"][0]
-    for b in range(C):
-        prims = s2p.reshape(C, 32)[b]
-        prims = prims[prims >= 0]
-        lo = tri[prims].reshape(-1, 3).min(0)
-        hi = tri[prims].reshape(-1, 3).max(0)
-        assert (lvl0[b, 0:3] <= lo + 1e-6).all()
-        assert (lvl0[b, 3:6] >= hi - 1e-6).all()
-
-    # pyramid containment + termination
-    levels = bs["aabb_levels"]
-    assert levels[-1].shape[0] <= 4
-    for lo_lvl, hi_lvl in zip(levels[:-1], levels[1:]):
-        n = lo_lvl.shape[0]
-        for gi in range(hi_lvl.shape[0]):
-            kids = lo_lvl[gi * 8: min((gi + 1) * 8, n)]
-            assert (hi_lvl[gi, 0:3] <= kids[:, 0:3].min(0) + 1e-6).all()
-            assert (hi_lvl[gi, 3:6] >= kids[:, 3:6].max(0) - 1e-6).all()

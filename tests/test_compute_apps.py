@@ -11,8 +11,6 @@ import pytest
 
 from skybox_rt_tpu.apps import compute
 
-ON_TPU = jax.default_backend() not in ("cpu",)
-
 
 def rng(seed=0):
     return np.random.default_rng(seed)
@@ -33,16 +31,18 @@ def test_sgemm():
                                rtol=1e-5, atol=1e-4)
 
 
-def test_sgemm_pallas_matches_mxu():
-    """sgemm2x analog: VMEM-blocked Pallas matmul == plain MXU matmul."""
+@pytest.mark.parametrize("m,k,n", [(256, 384, 128), (33, 1000, 7)])
+def test_sgemm_full_precision(m, k, n):
+    """sgemm/sgemm2x analog: the one-matmul sgemm keeps float32 products
+    (precision HIGHEST), so it matches a float64 product to float32
+    accumulation error at any shape."""
     r = rng(3)
-    m, k, n = 256, 384, 128
     a = r.standard_normal((m, k)).astype(np.float32)
     b = r.standard_normal((k, n)).astype(np.float32)
-    got = compute.sgemm_pallas(jnp.asarray(a), jnp.asarray(b),
-                               block=(128, 128, 128),
-                               interpret=not ON_TPU)
-    np.testing.assert_allclose(np.asarray(got), a @ b, rtol=1e-5, atol=1e-3)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    got = compute.sgemm(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4,
+                               atol=1e-4 * np.sqrt(k))
 
 
 def test_conv3x():

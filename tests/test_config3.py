@@ -1,22 +1,20 @@
-"""Config-3 standing artifact (BASELINE.json configs[2]; VERDICT r3 #8):
-the FULL RT path — BVH-treelet worklist kernel + textured shading + OM
-blend over-compositing — on a multi-object scene with translucent layers,
-golden-pinned and cross-validated against the raster path.
+"""Config-3 standing artifact (BASELINE.json configs[2]): the FULL RT
+path — BVH traversal + textured shading + OM blend over-compositing — on
+a multi-object scene with translucent layers, golden-pinned and
+cross-validated against the raster path.
 
 Scene: `vase` — 6 drawcalls: textured meshes plus translucent blended
 layers (draws 1-5 blend-enabled), exactly the "several textured meshes +
 a translucent blended layer" scene class.  Rendered by
-rt.raster_bridge(engine="pallas_bvh", camera="perspective"): opaque
-winner selection runs ops.pallas_rt.closest_hit_bvh (the hierarchical
-worklist kernel); blended draws run the exact submission-order fragment
-scan (the RT analog of the deferred blend slots).
+rt.raster_bridge(engine="auto", camera="perspective"), i.e. the compiled
+frame (rt.frame) on the device's traversal route: opaque winner
+selection runs one closest-hit walk; blended draws the K-slot "closest
+after" enumeration (the RT analog of the deferred blend slots).
 
 Golden: self-pinned PNG (the reference has no RT renderer —
 SURVEY §0), regenerated by scripts/make_config3_golden.py.  The raster
-cross-check reuses the bridge-test tolerance (4/255).
-scripts/ + bench.py extra `rt_config3_512_ms` carry the 512^2 chip
-number (CPU interpret mode is too slow for the default suite at 512^2;
-the @slow tier covers it).
+cross-check reuses the bridge-test tolerance (4/255).  The 512^2 size
+runs in the @slow tier.
 """
 import os
 
@@ -34,7 +32,7 @@ SCENE, SIZE = "vase", 128
 
 def _render(size):
     return raster_bridge.render_scene_rt(
-        SCENE, size, size, engine="pallas_bvh", camera="perspective")
+        SCENE, size, size, engine="auto", camera="perspective")
 
 
 def test_config3_rt_golden_and_raster_crosscheck():
@@ -64,7 +62,7 @@ def test_config3_rt_golden_and_raster_crosscheck():
 
 @pytest.mark.slow
 def test_config3_rt_512():
-    """The full 512^2 artifact size (chip-benched in bench.py extra)."""
+    """The full 512^2 artifact size."""
     rt = _render(512)
     raster = raster_bridge.framebuffer_to_float(
         driver.render_scene(SCENE, 512, 512))

@@ -17,6 +17,7 @@ MODULATE, depth LESS): >=99.9 % of pixels within 4/255, mean |diff|
 ~2e-3; the assert pins those margins.
 """
 import numpy as np
+import pytest
 
 import jax.numpy as jnp
 
@@ -61,15 +62,17 @@ def _diff_render(trace, dc):
     return np.asarray(out)[:H, :W]
 
 
-TRACE = cgltrace.load_cached(cgltrace.trace_path("tekkaman"))
-DC = TRACE.drawcalls[1]     # 755 prims, textured, MODULATE, depth LESS
+@pytest.fixture(scope="module")
+def trace():
+    return cgltrace.load_cached(cgltrace.trace_path("tekkaman"))
 
 
-def test_diff_pipeline_matches_int_reference():
-    """diff/pipeline vs the golden-anchored fixed-point path."""
+def test_diff_pipeline_matches_int_reference(trace):
+    """diff/pipeline vs the golden-anchored fixed-point path (draw 1: 755
+    prims, textured, MODULATE, depth LESS)."""
     ref = raster_bridge.framebuffer_to_float(
-        driver.render_trace(_OneDraw(TRACE, 1), W, H))
-    out = _diff_render(TRACE, DC)
+        driver.render_trace(_OneDraw(trace, 1), W, H))
+    out = _diff_render(trace, trace.drawcalls[1])
     diff = np.abs(out[..., :3] - ref[..., :3]).max(-1)
     frac = (diff <= 4 / 255).mean()
     assert frac >= 0.999, (
@@ -78,13 +81,14 @@ def test_diff_pipeline_matches_int_reference():
     assert diff.mean() <= 5e-3, f"mean drift {diff.mean():.5f}"
 
 
-def test_rt_bridge_matches_diff_pipeline():
-    """rt/raster_bridge vs diff/pipeline on the overlapping state
-    (textured + modulate + depth LESS): the two float renderers must
-    agree wherever both are defined."""
-    rt = raster_bridge.render_trace_rt(_OneDraw(TRACE, 1), W, H,
-                                       camera="perspective")
-    out = _diff_render(TRACE, DC)
+def test_rt_bridge_matches_diff_pipeline(trace):
+    """rt/raster_bridge (the compiled RT frame on the device's traversal
+    route) vs diff/pipeline on the overlapping state (textured +
+    modulate + depth LESS): the two float renderers must agree wherever
+    both are defined."""
+    rt = raster_bridge.render_trace_rt(_OneDraw(trace, 1), W, H,
+                                       engine="auto", camera="perspective")
+    out = _diff_render(trace, trace.drawcalls[1])
     diff = np.abs(out[..., :3] - rt[..., :3]).max(-1)
     frac = (diff <= 4 / 255).mean()
     assert frac >= 0.995, (

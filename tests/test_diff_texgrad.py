@@ -1,42 +1,32 @@
-"""Texture-gradient path: Pallas row accumulator + quad-sampler custom VJP.
+"""Texture-gradient path: row accumulation + quad-sampler custom VJP.
 
-The hand-written VJP of sample_texture_bilinear_quad must equal autodiff
-of the same math (scatter-add route), and the Pallas one-hot-matmul
-accumulator must equal the XLA scatter it replaces (interpret mode on
-the CPU test mesh).
+The hand-written VJPs (sample_texture_bilinear_quad, gather_tile_rows)
+must equal autodiff of the same math, and the row accumulator must equal
+numpy's unbuffered scatter-add.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from skybox_rt_tpu.diff import pallas_texgrad, pipeline
+from skybox_rt_tpu.diff import pipeline
 
 
-@pytest.mark.parametrize("split_bf16", [False, True])
-def test_accumulate_rows_matches_scatter(split_bf16):
+@pytest.mark.parametrize("N,R,C", [(3000, 256, 16), (777, 1000, 27)])
+def test_accumulate_rows_matches_scatter(N, R, C):
     rng = np.random.default_rng(0)
-    N, R, C = 3000, 256, 16
     idx = jnp.asarray(rng.integers(0, R, N).astype(np.int32))
     val = jnp.asarray(rng.normal(size=(N, C)).astype(np.float32))
     want = np.zeros((R, C), np.float32)
     np.add.at(want, np.asarray(idx), np.asarray(val))
-    got = pallas_texgrad.accumulate_rows(idx, val, R, interpret=True,
-                                         split_bf16=split_bf16)
-    if split_bf16:
-        # default mode: hi+lo bf16 split -> |err| <= ~2^-16 per element
-        np.testing.assert_allclose(np.asarray(got), want, atol=5e-4,
-                                   rtol=1e-2)
-    else:
-        np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5,
-                                   atol=1e-5)
+    got = pipeline._accumulate_rows(idx, val, R)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-5)
 
 
 def test_accumulate_rows_drops_out_of_range():
     idx = jnp.asarray([0, 5, 300, 5], dtype=jnp.int32)   # 300 >= R
     val = jnp.ones((4, 2), jnp.float32)
-    got = np.asarray(pallas_texgrad.accumulate_rows(idx, val, 256,
-                                                    interpret=True))
+    got = np.asarray(pipeline._accumulate_rows(idx, val, 256))
     assert got[0, 0] == 1.0 and got[5, 0] == 2.0
     assert got.sum() == pytest.approx(6.0)
 
@@ -82,15 +72,25 @@ def test_quad_values_match_flat_sampler():
                                rtol=1e-6, atol=1e-6)
 
 
-def test_gather_tile_rows_matmul_bit_exact():
-    """The one-hot matmul forward of gather_tile_rows must reproduce the
-    gathered rows BIT-exactly (1.0*v + exact zeros)."""
+@pytest.mark.parametrize("T,M,C", [(5, 37, 27), (3, 4, 9)])
+def test_gather_tile_rows_vjp_matches_autodiff(T, M, C):
+    """gather_tile_rows: forward == take_along_axis, and its scatter-add
+    backward == autodiff of the plain gather."""
     rng = np.random.default_rng(3)
-    T, M, C = 5, 37, 27
     table = jnp.asarray(rng.normal(size=(T, M, C)).astype(np.float32))
     idx = jnp.asarray(rng.integers(0, M, (T, 8, 8)).astype(np.int32))
-    want = jnp.take_along_axis(
-        table, idx.reshape(T, -1)[..., None], axis=1
-    ).reshape(T, 8, 8, C)
-    got = pipeline._gather_tile_rows_matmul(table, idx)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    g_out = jnp.asarray(rng.normal(size=(T, 8, 8, C)).astype(np.float32))
+
+    def plain(table):
+        return jnp.take_along_axis(
+            table, idx.reshape(T, -1)[..., None], axis=1
+        ).reshape(T, 8, 8, C)
+
+    np.testing.assert_array_equal(
+        np.asarray(pipeline.gather_tile_rows(table, idx)),
+        np.asarray(plain(table)))
+    gc = jax.grad(lambda t: jnp.sum(pipeline.gather_tile_rows(t, idx)
+                                    * g_out))(table)
+    gp = jax.grad(lambda t: jnp.sum(plain(t) * g_out))(table)
+    np.testing.assert_allclose(np.asarray(gc), np.asarray(gp),
+                               rtol=1e-5, atol=1e-5)

@@ -36,15 +36,6 @@ def test_sharded_blended_scene_exact(n):
     np.testing.assert_array_equal(got, np.asarray(ref))
 
 
-def test_sharded_pallas_visibility():
-    """The Pallas pass-1 kernel inside shard_map (interpret on CPU)."""
-    mesh = mesh_mod.make_mesh(4)
-    ref = driver.render_scene("box", 64, 64, mode="immediate")
-    got = draw_shard.render_trace_sharded(_trace("box"), 64, 64, mesh,
-                                          visibility="pallas")
-    np.testing.assert_array_equal(got, np.asarray(ref))
-
-
 def test_striping_rule_matches_reference():
     """Device i's shard block must hold tiles i, i+N, i+2N, ...
     (raster_unit.cpp:221-227)."""

@@ -1,5 +1,7 @@
 """Inverse-rendering loop: failure detection, rollback, checkpoint/resume
 (SURVEY §5 failure-detection/checkpoint subsystems)."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -82,3 +84,22 @@ def test_stage_tracing():
         jnp.ones((4,)).sum()
     rep = tracing.stage_report()
     assert "demo_stage" in rep and rep["demo_stage"]["calls"] == 1
+
+
+def test_checkpoint_files_roundtrip_and_pruning(tmp_path):
+    """.npz checkpoints: leaves round-trip exactly, the newest wins, and
+    only optim.KEEP_CHECKPOINTS files stay."""
+    params = {"a": np.arange(6, dtype=np.float32).reshape(2, 3),
+              "b": {"c": np.ones((4,), np.float32)}}
+    d = str(tmp_path / "ck")
+    for step in range(1, 6):
+        p = jax.tree_util.tree_map(lambda x, s=step: x * s, params)
+        optim.save_checkpoint(d, step, p)
+    files = sorted(os.listdir(d))
+    assert len(files) == optim.KEEP_CHECKPOINTS
+    step, restored = optim.load_checkpoint(optim.latest_checkpoint(d),
+                                           params)
+    assert step == 5
+    np.testing.assert_array_equal(np.asarray(restored["a"]), params["a"] * 5)
+    np.testing.assert_array_equal(np.asarray(restored["b"]["c"]),
+                                  params["b"]["c"] * 5)

@@ -27,7 +27,7 @@ CAM = tracer.Camera(eye=(0.0, 0.6, 3.2), look_at=(0.0, -0.1, 0.0))
     (2, "bvh", False, 0),
     (4, "bvh", True, 1),
     (8, "brute", True, 0),
-    (2, "pallas", True, 0),
+    (2, "kernel", True, 0),
 ])
 def test_sharded_matches_single(n, engine, shadows, bounces):
     if len(jax.devices()) < n:
@@ -35,7 +35,8 @@ def test_sharded_matches_single(n, engine, shadows, bounces):
     scene = _scene()
     # 40x48: rows not divisible by 8 devices forces the padding path
     cfg = tracer.RTConfig(width=48, height=40, shadows=shadows,
-                          bounces=bounces, engine=engine)
+                          bounces=bounces, engine=engine,
+                          interpret=engine == "kernel")
     ref = np.asarray(tracer.render(scene, CAM, cfg))
     mesh = mesh_mod.make_mesh(n)
     got = np.asarray(ray_shard.render_sharded(scene, CAM, cfg, mesh))
@@ -44,10 +45,10 @@ def test_sharded_matches_single(n, engine, shadows, bounces):
 
 def test_sharded_northstar_config_matches_single():
     """The north-star scene class (multi-object sphere field + ground,
-    multi-bounce + shadows, pallas_bvh engine) ray-sharded over the CPU
-    mesh == the single-device frame (VERDICT r3 #2 correctness leg;
-    scripts/rt_northstar_bench.py runs the same config at 1024^2 on
-    chip)."""
+    multi-bounce + shadows, the kernel engine in the Pallas
+    interpreter) ray-sharded over the CPU mesh == the single-device
+    frame (chip_smoke.py --four runs the same check at 1024^2 on four
+    GPUs)."""
     n = min(4, len(jax.devices()))
     if n < 2:
         pytest.skip("not enough devices")
@@ -57,7 +58,7 @@ def test_sharded_northstar_config_matches_single():
     cam = tracer.Camera(eye=(0.0, 2.5, 9.5), look_at=(0.0, -0.4, 0.0),
                         fov_y_deg=55.0)
     cfg = tracer.RTConfig(width=48, height=40, bounces=2, shadows=True,
-                          engine="pallas_bvh")
+                          engine="kernel", interpret=True)
     ref = np.asarray(tracer.render(scene, cam, cfg))
     mesh = mesh_mod.make_mesh(n)
     got = np.asarray(ray_shard.render_sharded(scene, cam, cfg, mesh))

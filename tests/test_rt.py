@@ -147,7 +147,7 @@ def test_reflection_bounce():
 
 
 def test_stackless_matches_bruteforce():
-    """Preorder/escape-link lockstep traversal (the TPU deployment path)
+    """Preorder/escape-link lockstep traversal (the XLA reference walk)
     vs brute force — exact prim agreement."""
     verts, faces = scenes.icosphere(subdiv=2)
     bvh = bvh_mod.build(verts, faces)
@@ -231,14 +231,20 @@ def test_morton_locality():
     assert (keys_neg != keys).all()
 
 
+def _cfg(engine, **kw):
+    """RTConfig for `engine`; the GPU kernel runs in the Pallas
+    interpreter here."""
+    return tracer.RTConfig(engine=engine, interpret=engine == "kernel",
+                           **kw)
+
+
 def test_all_engines_render_identical():
-    """pallas / bvh / brute engines through the full tracer: same image."""
+    """kernel / bvh / brute engines through the full tracer: same image."""
     scene = _sphere_scene()
     cam = tracer.Camera(eye=(0.3, 0.5, 2.8), look_at=(0, 0, 0))
     imgs = []
-    for engine in ("pallas", "bvh", "brute"):
-        cfg = tracer.RTConfig(width=32, height=32, engine=engine,
-                              shadows=True)
+    for engine in ("kernel", "bvh", "brute"):
+        cfg = _cfg(engine, width=32, height=32, shadows=True)
         imgs.append(np.asarray(tracer.render(scene, cam, cfg)))
     np.testing.assert_allclose(imgs[0], imgs[2], atol=2e-5)
     np.testing.assert_allclose(imgs[1], imgs[2], atol=2e-5)
@@ -280,16 +286,14 @@ def test_tile_order_perm():
     assert np.array_equal(xs[:4], [0, 1, 2, 3]) and (ys[:4] == 0).all()
 
 
-def test_large_scene_takes_streamed_engine():
-    """Scenes beyond the blocked kernel's VMEM bound transparently take
-    the HBM-streamed kernel (tracer.PALLAS_MAX_TRIS guard) and must match
-    the stackless BVH engine's image."""
-    verts, faces = scenes.icosphere(subdiv=5)     # 20480 tris > 15000
-    assert faces.shape[0] > tracer.PALLAS_MAX_TRIS
+def test_large_scene_kernel_matches_bvh():
+    """A 20k-triangle scene through the kernel engine matches the
+    stackless BVH engine's image."""
+    verts, faces = scenes.icosphere(subdiv=5)     # 20480 tris
     colors = np.ones((verts.shape[0], 4), np.float32)
     scene = tracer.RTScene(verts=verts, faces=faces, colors=colors)
     cam = tracer.Camera(eye=(0, 0, 3), look_at=(0, 0, 0))
-    cfg = tracer.RTConfig(width=16, height=16, engine="pallas")
+    cfg = _cfg("kernel", width=16, height=16)
     img = np.asarray(tracer.render(scene, cam, cfg))
     assert np.isfinite(img).all()
     assert (img[..., :3].sum(-1) > 0).any()
@@ -298,7 +302,7 @@ def test_large_scene_takes_streamed_engine():
     np.testing.assert_allclose(img, ref, atol=1e-5)
 
 
-@pytest.mark.parametrize("engine", ["pallas", "bvh", "brute"])
+@pytest.mark.parametrize("engine", ["kernel", "bvh", "brute"])
 def test_bounce_compaction_image_identical(engine):
     """Re-compaction between bounces (SURVEY §5 long-context analog) is a
     pure scheduling change: the image must be identical with it on/off,
@@ -312,11 +316,11 @@ def test_bounce_compaction_image_identical(engine):
                                 (verts_p.shape[0], 1))])
     scene = tracer.RTScene(verts=v, faces=f, colors=c, reflectivity=0.6)
     cam = tracer.Camera(eye=(0, 0.8, 3.5), look_at=(0, 0, 0))
-    kw = dict(width=48, height=48, bounces=2, shadows=True, engine=engine)
+    kw = dict(width=48, height=48, bounces=2, shadows=True)
     a = np.asarray(tracer.render(
-        scene, cam, tracer.RTConfig(compact_bounces=True, **kw)))
+        scene, cam, _cfg(engine, compact_bounces=True, **kw)))
     b = np.asarray(tracer.render(
-        scene, cam, tracer.RTConfig(compact_bounces=False, **kw)))
+        scene, cam, _cfg(engine, compact_bounces=False, **kw)))
     np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5)
     assert np.isfinite(a).all()
 
@@ -328,11 +332,11 @@ def test_compact_stay_image_identical():
     scene = _sphere_scene(reflectivity=0.6)
     cam = tracer.Camera(eye=(0, 0.8, 3.5), look_at=(0, 0, 0))
     kw = dict(width=48, height=48, bounces=2, shadows=True,
-              engine="pallas", compact_bounces=True)
+              compact_bounces=True)
     a = np.asarray(tracer.render(
-        scene, cam, tracer.RTConfig(compact_stay=True, **kw)))
+        scene, cam, _cfg("kernel", compact_stay=True, **kw)))
     b = np.asarray(tracer.render(
-        scene, cam, tracer.RTConfig(compact_stay=False, **kw)))
+        scene, cam, _cfg("kernel", compact_stay=False, **kw)))
     np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5)
     assert np.isfinite(a).all()
 
@@ -344,11 +348,11 @@ def test_bounce_width_ladder_image_identical():
     scene = _sphere_scene(reflectivity=0.6)
     cam = tracer.Camera(eye=(0, 0.8, 3.5), look_at=(0, 0, 0))
     kw = dict(width=64, height=64, bounces=2, shadows=True,
-              engine="pallas", compact_bounces=True, compact_stay=True)
+              compact_bounces=True, compact_stay=True)
     a = np.asarray(tracer.render(
-        scene, cam, tracer.RTConfig(bounce_width_ladder=2, **kw)))
+        scene, cam, _cfg("kernel", bounce_width_ladder=2, **kw)))
     b = np.asarray(tracer.render(
-        scene, cam, tracer.RTConfig(bounce_width_ladder=0, **kw)))
+        scene, cam, _cfg("kernel", bounce_width_ladder=0, **kw)))
     np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5)
     assert np.isfinite(a).all()
 

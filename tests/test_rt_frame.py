@@ -1,36 +1,27 @@
 """Compiled single-dispatch RT frame (rt/frame.py) — the config-3 path.
 
-Covers: the K-slot enumeration kernel's exactness (every hit, exact-t
-ties included, in lexicographic (t, slot) order), the fused frame's
-agreement with the exact submission-order scan oracle
-(rt/raster_bridge._scan_drawcall ≅ om_unit.cpp:24-154 in float), and the
-overflow-retry contract (probe walk counts dropped fragments; K doubles
-until clean — the deferred raster blend-K pattern, ops/deferred.py).
+Covers: the "closest after" enumeration walk's exactness (every hit,
+exact-t ties included, in lexicographic (t, prim) order) on both
+traversal routes, the fused frame's agreement with the exact
+submission-order scan oracle (rt/raster_bridge._scan_drawcall ≅
+om_unit.cpp:24-154 in float), and the overflow-retry contract (probe
+walk counts dropped fragments; K doubles until clean — the deferred
+raster blend-K pattern, ops/deferred.py).
 """
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
 from skybox_rt_tpu.geom import cgltrace
-from skybox_rt_tpu.ops import pallas_rt
+from skybox_rt_tpu.ops import traverse
 from skybox_rt_tpu.rt import bvh as bvh_mod
 from skybox_rt_tpu.rt import frame, raster_bridge
 
 
-def _soup_blocks(v0, e1, e2, tri_block=64):
-    verts = np.stack([v0, v0 + e1, v0 + e2], 1).reshape(-1, 3)
-    faces = np.arange(verts.shape[0]).reshape(-1, 3)
-    bvh = bvh_mod.build_sah(verts, faces)
-    bs = bvh_mod.build_block_set(bvh, tri_block=tri_block)
-    return pallas_rt.prepare_bvh_blocks(
-        jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2), bs)
-
-
 def _mt_all_t(o, d, v0, e1, e2):
     """(R, P) hit t (inf = miss) — brute-force enumeration oracle with
-    the kernel's MT semantics (pallas_rt._mt_one eps/bounds)."""
+    the walks' MT semantics (intersect.moller_trumbore eps/bounds)."""
     pv = np.cross(d[:, None], e2[None])
     det = np.einsum("pk,rpk->rp", e1, pv)
     valid = np.abs(det) > 1e-9
@@ -44,7 +35,8 @@ def _mt_all_t(o, d, v0, e1, e2):
     return np.where(hit, t, np.inf).astype(np.float32)
 
 
-def test_bvh_after_enumerates_all_hits_including_ties():
+@pytest.mark.parametrize("engine", ["kernel", "bvh"])
+def test_after_walk_enumerates_all_hits_including_ties(engine):
     rng = np.random.default_rng(0)
     P, R, K = 37, 300, 8
     v0 = rng.uniform(-1, 1, (P, 3)).astype(np.float32)
@@ -53,24 +45,34 @@ def test_bvh_after_enumerates_all_hits_including_ties():
     # exact duplicate prim => exact-t tie on every hit; a plain
     # t-epsilon advance would enumerate only one of the pair
     v0[20], e1[20], e2[20] = v0[5], e1[5], e2[5]
-    blocks = _soup_blocks(v0, e1, e2)
+    verts = np.stack([v0, v0 + e1, v0 + e2], 1).reshape(-1, 3)
+    faces = np.arange(verts.shape[0]).reshape(-1, 3)
+    bvh = bvh_mod.build_sah(verts, faces)
+    tri = tuple(jnp.asarray(a) for a in (v0, e1, e2))
+    stackless = bvh.as_stackless_arrays()
+    scene = traverse.prepare_scene(stackless, tri, bvh.leaf_size)
 
     o = rng.uniform(-3, -2, (R, 3)).astype(np.float32)
     d = (rng.uniform(-1, 1, (R, 3)) + 1.5).astype(np.float32)
+    oj, dj = jnp.asarray(o), jnp.asarray(d)
 
-    wk = pallas_rt.bvh_worklists(jnp.asarray(o), jnp.asarray(d), blocks,
-                                 sub=2)
     tlo = jnp.full((R,), -np.inf, jnp.float32)
-    slo = jnp.full((R,), -1, jnp.int32)
+    plo = jnp.full((R,), -1, jnp.int32)
     got = [[] for _ in range(R)]
     for _ in range(K):
-        slot, prim, t, u, v = pallas_rt.closest_hit_bvh_after(
-            blocks, wk, tlo, slo, t_min=1e-6, interpret=True)
+        if engine == "kernel":
+            prim, t, u, v = traverse.traverse(
+                scene, oj, dj, mode="after", t_min=1e-6, t_lo=tlo,
+                prim_lo=plo, interpret=True, block=64)
+        else:
+            prim, t, u, v = bvh_mod.closest_hit_stackless(
+                stackless, tri, oj, dj, t_min=1e-6,
+                leaf_size=bvh.leaf_size, t_lo=tlo, p_lo=plo)
         pn, tn = np.asarray(prim), np.asarray(t)
         for r in range(R):
             if pn[r] >= 0:
                 got[r].append((tn[r], pn[r]))
-        tlo, slo = t, slot
+        tlo, plo = t, prim
 
     T = _mt_all_t(o, d, v0, e1, e2)
     tie_rays = 0
@@ -81,22 +83,23 @@ def test_bvh_after_enumerates_all_hits_including_ties():
         ref_t = np.asarray([a for a, _ in ref[:n]])
         got_t = np.asarray([a for a, _ in got[r]])
         np.testing.assert_allclose(got_t, ref_t, rtol=1e-5, atol=1e-6)
-        # set equality on prim ids (enumeration order is (t, SLOT), the
-        # oracle's is (t, prim) — tie pairs may swap)
-        assert {p for _, p in ref[:n]} == {p for _, p in got[r]}
+        # enumeration order is (t, prim), the oracle's too
+        assert [p for _, p in ref[:n]] == [p for _, p in got[r]]
         if np.isfinite(T[r, 5]):
             tie_rays += 1
             assert {5, 20} <= {p for _, p in got[r]}
     assert tie_rays > 0          # the tie case actually exercised
 
 
-VASE = cgltrace.load_cached(cgltrace.trace_path("vase"))
+@pytest.fixture(scope="module")
+def vase():
+    return cgltrace.load_cached(cgltrace.trace_path("vase"))
 
 
-def test_fused_frame_matches_scan_oracle():
+def test_fused_frame_matches_scan_oracle(vase):
     """One jitted frame == the exact per-draw submission-order scan."""
-    a = frame.render_trace_rt_fused(VASE, 64, 64)
-    b = raster_bridge.render_trace_rt(VASE, 64, 64, engine="bvh",
+    a = frame.render_trace_rt_fused(vase, 64, 64)
+    b = raster_bridge.render_trace_rt(vase, 64, 64, engine="bvh",
                                       camera="perspective")
     diff = np.abs(a[..., :3] - b[..., :3]).max(-1)
     assert diff.max() <= 1e-3, f"max diff {diff.max()}"
@@ -106,7 +109,7 @@ def _layered_trace(layers=3, grid=6):
     """Synthetic one-drawcall trace: `layers` stacked viewport-covering
     triangle sheets (grid x grid quads each), blend on, depth off — every
     pixel receives `layers` fragments in submission order, and P > the
-    scan cutoff so the K-slot kernel path (not the tiny-draw scan) runs."""
+    scan cutoff so the K-slot walks (not the tiny-draw scan) run."""
     import types
 
     from skybox_rt_tpu.core import constants as Cc
@@ -155,13 +158,15 @@ def _layered_trace(layers=3, grid=6):
     return tr
 
 
-def test_fused_frame_overflow_retry_converges():
+@pytest.mark.parametrize("engine", ["kernel", "bvh"])
+def test_fused_frame_overflow_retry_converges(engine):
     """A scene whose per-ray fragment count (3 stacked translucent
     layers) exceeds the starting K must trip the probe walk and double K
     until the image matches the exact scan oracle."""
     tr = _layered_trace(layers=3)
     tkey = frame._trace_key(tr)
-    out = frame.render_trace_rt_fused(tr, 32, 32)
+    out = frame.render_trace_rt_fused(tr, 32, 32, engine=engine,
+                                      interpret=engine == "kernel")
     # the retry loop must have discovered K >= 3 for the kslot draw
     ks = [k for (tk, _), k in frame._K_HINTS.items() if tk == tkey]
     assert ks and max(ks) >= 3, ks
@@ -171,13 +176,13 @@ def test_fused_frame_overflow_retry_converges():
     assert diff.max() <= 1e-3, f"max diff {diff.max()}"
 
 
-def test_fused_frame_is_single_dispatch():
+def test_fused_frame_is_single_dispatch(vase):
     """The whole frame traces into ONE jitted callable whose inputs stay
     device-resident (no per-draw host loop)."""
-    fn, arrays, rays, metas = frame.make_frame_fn(VASE, 32, 32)
+    fn, arrays, rays, metas = frame.make_frame_fn(vase, 32, 32)
     zbuf, color, ovf = fn(arrays, *rays)
     assert color.shape == (32 * 32, 4)
-    # the vase plan: draw 1 opaque LESS -> winner kernel; blended draws
+    # the vase plan: draw 1 opaque LESS -> winner walk; blended draws
     # above the scan cutoff (2, 3, 4) -> K-slot enumeration; the 2-prim
     # full-screen quads (0, 5) -> exact vectorized scan in the same jit
     modes = {m["draw_index"]: m["mode"] for m in metas}

@@ -6,6 +6,7 @@ Buffer access-flag checks carry that concept (ACL enforcement,
 sim/common/mem.h:159-176).  The CLI test is the blackbox.sh run-an-app check.
 """
 import json
+import os
 import subprocess
 import sys
 
@@ -14,6 +15,8 @@ import pytest
 
 from skybox_rt_tpu.runtime.device import Buffer, Device, DeviceError
 from skybox_rt_tpu.runtime.perf import PerfCounters
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_device_caps():
@@ -207,15 +210,15 @@ def test_roofline_placement():
     and the ridge point."""
     from skybox_rt_tpu.runtime import perf as perf_mod
 
-    pk = perf_mod.V5E_PEAKS
+    pk = perf_mod.device_peaks("NVIDIA H100 80GB HBM3")
     # HBM-bound: 1 flop/byte << ridge
-    r = perf_mod.roofline(1e9, 1e9, seconds=1e-2)
+    r = perf_mod.roofline(1e9, 1e9, seconds=1e-2, peaks=pk)
     assert r["bound_by"] == "hbm"
     assert abs(r["pct_of_hbm_peak"] - 1e11 / pk["hbm_bytes_per_s"] * 100) \
         < 1e-6
     assert r["pct_of_roofline"] == r["pct_of_hbm_peak"]
     # compute-bound: intensity far above the ridge
-    r2 = perf_mod.roofline(1e13, 1e9, seconds=1e-1)
+    r2 = perf_mod.roofline(1e13, 1e9, seconds=1e-1, peaks=pk)
     assert r2["bound_by"] == "flops"
     assert r2["pct_of_roofline"] == r2["pct_of_flop_peak"]
     assert r2["arith_intensity_flops_per_byte"] > r2["ridge_flops_per_byte"]
@@ -233,7 +236,9 @@ def test_roofline_of_fn_cpu():
         return (x @ x).sum()
 
     x = jnp.ones((128, 128), jnp.float32)
-    r = perf_mod.roofline_of_fn(f, x, seconds=1e-3)
+    r = perf_mod.roofline_of_fn(
+        f, x, seconds=1e-3,
+        peaks=perf_mod.device_peaks("NVIDIA H100 80GB HBM3"))
     assert r["flops"] > 0 and r["seconds"] == 1e-3
 
 
@@ -243,7 +248,85 @@ def test_roofline_from_traffic():
     t = {"tex_mem_reads_bytes": 6_000_000, "om_mem_writes_bytes": 2_000_000,
          "tiles": 24, "prims": 10}
     assert perf_mod.traffic_bytes(t) == 8_000_000
-    r = perf_mod.roofline_from_traffic(t, seconds=1e-3)
+    r = perf_mod.roofline_from_traffic(
+        t, seconds=1e-3, peaks=perf_mod.device_peaks("NVIDIA H100 80GB HBM3"))
     assert r["bytes_model"] == "measured_unit_traffic"
     assert r["bound_by"] == "hbm"
     assert abs(r["achieved_gb_per_s"] - 8.0) < 1e-6
+
+
+@pytest.mark.parametrize("kind,known", [
+    ("NVIDIA H100 80GB HBM3", True),
+    ("cpu", False),
+    ("AMD Instinct MI300X", False),
+])
+def test_device_peaks_table(kind, known):
+    """Peaks come from the device-kind table; an unknown device raises
+    instead of falling back to some other device's numbers."""
+    from skybox_rt_tpu.runtime import perf as perf_mod
+
+    if known:
+        pk = perf_mod.device_peaks(kind)
+        assert pk["hbm_bytes_per_s"] > 0 and pk["f32_flops_per_s"] > 0
+    else:
+        with pytest.raises(perf_mod.UnknownDeviceError):
+            perf_mod.device_peaks(kind)
+
+
+@pytest.mark.parametrize("platform,engine", [("gpu", "kernel"),
+                                             ("cpu", "bvh")])
+def test_rt_route_choice(platform, engine):
+    """runtime.device picks the traversal route per platform."""
+    from skybox_rt_tpu.runtime import device
+
+    assert device.rt_engine(platform) == engine
+
+
+def test_rt_route_unknown_platform_raises():
+    from skybox_rt_tpu.runtime import device
+
+    with pytest.raises(device.DeviceError):
+        device.rt_engine("rocm")
+
+
+def test_rt_route_never_interprets():
+    """No platform routes to the Pallas interpreter: interpret mode is
+    reached only through an explicit argument."""
+    import dataclasses
+
+    from skybox_rt_tpu.rt import tracer
+    from skybox_rt_tpu.runtime import device
+
+    assert "interpret" not in " ".join(device.RT_ENGINES.values())
+    cfg = tracer.RTConfig(width=8, height=8)
+    assert cfg.engine == "auto" and cfg.interpret is False
+    assert tracer.resolve_engine(cfg) == "bvh"          # the CPU route
+    assert tracer.resolve_engine(
+        dataclasses.replace(cfg, use_bvh=False)) == "brute"
+    with pytest.raises(ValueError):
+        tracer.resolve_engine(dataclasses.replace(cfg, engine="pallas"))
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_dir(env_set, tmp_path):
+    """The compile cache goes to $JAX_COMPILATION_CACHE_DIR when set,
+    else to the one fixed, git-ignored directory of the checkout."""
+    import subprocess
+    import sys
+
+    env = dict(os.environ)
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    if env_set:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path)
+    env["JAX_PLATFORMS"] = "cpu"
+    code = ("import jax, skybox_rt_tpu; "
+            "print(jax.config.jax_compilation_cache_dir)")
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, check=True,
+                         cwd=REPO).stdout.split()
+    if env_set:
+        assert out == [str(tmp_path)]
+    else:
+        assert out == [os.path.join(REPO, ".jax_cache")]
+        ignored = open(os.path.join(REPO, ".gitignore")).read().split()
+        assert ".jax_cache/" in ignored
