@@ -1,6 +1,6 @@
 """BVH traversal kernel for the GPU (Pallas, lowered through Triton).
 
-One ray per lane, ``block`` rays per program.  Each lane walks the
+One ray per lane, BLOCK rays per program.  Each lane walks the
 preorder + escape-link node arrays of ``rt.bvh.BVH.as_stackless_arrays``
 on its own — the node pointer and the running best hit live in
 registers, so divergent rays cost a lane its own path length and nothing
@@ -181,25 +181,24 @@ def _make_kernel(mode: str, num_nodes: int, leaf_size: int, t_min: float):
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "mode", "num_nodes", "leaf_size", "t_min", "block", "num_warps",
-    "interpret"))
+    "mode", "num_nodes", "leaf_size", "t_min", "interpret"))
 def _traverse_call(nodes_f, nodes_i, tris, tri_prim, rays, *, mode,
-                   num_nodes, leaf_size, t_min, block, num_warps, interpret):
+                   num_nodes, leaf_size, t_min, interpret):
     rp = rays[0].shape[0]
     kernel = _make_kernel(mode, num_nodes, leaf_size, t_min)
-    ray_spec = pl.BlockSpec((block,), lambda i: (i,))
+    ray_spec = pl.BlockSpec((BLOCK,), lambda i: (i,))
     whole = pl.BlockSpec(memory_space=pl.ANY)
     n_out = 1 if mode == "any" else 4
     out_shape = [jax.ShapeDtypeStruct((rp,), I32)] + [
         jax.ShapeDtypeStruct((rp,), F32)] * (n_out - 1)
     return pl.pallas_call(
         kernel,
-        grid=(rp // block,),
+        grid=(rp // BLOCK,),
         in_specs=[whole] * 4 + [ray_spec] * len(rays),
         out_specs=[ray_spec] * n_out,
         out_shape=out_shape,
         backend="triton",
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
                                              num_stages=1),
         interpret=interpret,
         name=f"bvh_{mode}",
@@ -208,7 +207,6 @@ def _traverse_call(nodes_f, nodes_i, tris, tri_prim, rays, *, mode,
 
 def traverse(scene, orig, direction, mode: str = "closest",
              t_min: float = 1e-4, t_max=None, t_lo=None, prim_lo=None,
-             block: int = BLOCK, num_warps: int = NUM_WARPS,
              interpret: bool = False):
     """Walk the rays (R, 3) through a prepare_scene() scene.
 
@@ -223,10 +221,8 @@ def traverse(scene, orig, direction, mode: str = "closest",
     if (mode == "after") != (t_lo is not None and prim_lo is not None):
         raise ValueError("t_lo/prim_lo are required by, and only by, "
                          "mode='after'")
-    if block & (block - 1):
-        raise ValueError(f"block must be a power of two, got {block}")
     R = orig.shape[0]
-    rp = max(-(-R // block), 1) * block
+    rp = max(-(-R // BLOCK), 1) * BLOCK
     pad = rp - R
 
     def col(x, fill, dtype=F32):
@@ -245,8 +241,7 @@ def traverse(scene, orig, direction, mode: str = "closest",
         scene["nodes_f"], scene["nodes_i"], scene["tris"],
         scene["tri_prim"], tuple(rays), mode=mode,
         num_nodes=scene["num_nodes"], leaf_size=scene["leaf_size"],
-        t_min=float(t_min), block=block, num_warps=num_warps,
-        interpret=interpret)
+        t_min=float(t_min), interpret=interpret)
     if mode == "any":
         return outs[0][:R] >= 0
     prim = outs[0][:R]

@@ -36,17 +36,18 @@ def _rays(R, seed=0):
     return jnp.asarray(o), jnp.asarray(d)
 
 
-@pytest.mark.parametrize("block,num_warps", [(32, 1), (128, 4), (256, 8)])
-def test_closest_compiled_matches_stackless(gpu_device, block, num_warps):
+@pytest.mark.parametrize("R", [1, traverse.BLOCK * 2048,
+                               traverse.BLOCK * 2048 + 77])
+def test_closest_compiled_matches_stackless(gpu_device, R):
+    """Whole programs and a partial last program."""
     scene, sl, tri, b = _field()
-    o, d = _rays(65536 + 77)
-    p, t, u, v = jax.jit(lambda o, d: traverse.traverse(
-        scene, o, d, block=block, num_warps=num_warps))(o, d)
+    o, d = _rays(R)
+    p, t, u, v = jax.jit(lambda o, d: traverse.traverse(scene, o, d))(o, d)
     rp, rt_, _, _ = bvh_mod.closest_hit_stackless(sl, tri, o, d,
                                                   leaf_size=b.leaf_size)
     np.testing.assert_array_equal(np.asarray(p), np.asarray(rp))
     hit = np.asarray(rp) >= 0
-    assert hit.mean() > 0.05
+    assert R == 1 or hit.mean() > 0.05
     np.testing.assert_allclose(np.asarray(t)[hit], np.asarray(rt_)[hit],
                                rtol=1e-5)
 

@@ -63,7 +63,7 @@ def test_after_walk_enumerates_all_hits_including_ties(engine):
         if engine == "kernel":
             prim, t, u, v = traverse.traverse(
                 scene, oj, dj, mode="after", t_min=1e-6, t_lo=tlo,
-                prim_lo=plo, interpret=True, block=64)
+                prim_lo=plo, interpret=True)
         else:
             prim, t, u, v = bvh_mod.closest_hit_stackless(
                 stackless, tri, oj, dj, t_min=1e-6,

@@ -16,7 +16,7 @@ from skybox_rt_tpu.ops import traverse
 from skybox_rt_tpu.rt import bvh as bvh_mod
 from skybox_rt_tpu.rt import intersect
 
-BLOCK = 32          # small programs keep the interpreter fast
+BLOCK = traverse.BLOCK
 
 
 def _scene(verts, faces, method="sah"):
@@ -92,7 +92,7 @@ def test_closest_matches_bruteforce(name, R):
     oj, dj = jnp.asarray(o), jnp.asarray(d)
     t_max = jnp.inf if tm is None else jnp.asarray(tm)[:, None]
     p, t, u, w = traverse.traverse(scene, oj, dj, t_max=tm,
-                                   interpret=True, block=BLOCK)
+                                   interpret=True)
     bp, bt, bu, bw = intersect.closest_hit_bruteforce(oj, dj, *tri,
                                                       t_max=t_max)
     np.testing.assert_array_equal(np.asarray(p), np.asarray(bp))
@@ -117,7 +117,7 @@ def test_any_matches_bruteforce(name, R):
     scene, tri = _scene(v, f)
     oj, dj = jnp.asarray(o), jnp.asarray(d)
     got = traverse.traverse(scene, oj, dj, mode="any", t_max=tm,
-                            interpret=True, block=BLOCK)
+                            interpret=True)
     want = intersect.any_hit_bruteforce(oj, dj, *tri, t_max=jnp.asarray(tm)
                                         [:, None])
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
@@ -143,7 +143,7 @@ def test_after_enumerates_every_hit_in_order(name):
     for _ in range(K):
         p, tt, _, _ = traverse.traverse(scene, oj, dj, mode="after",
                                         t_max=tm, t_lo=tlo, prim_lo=plo,
-                                        interpret=True, block=BLOCK)
+                                        interpret=True)
         pn = np.asarray(p)
         for r in np.flatnonzero(pn >= 0):
             got[r].append(int(pn[r]))
@@ -162,12 +162,11 @@ def test_wrapper_padding_and_shapes(R):
     scene, tri = _scene(v, f)
     o, d = _random_rays(R, seed=R)
     p, t, u, w = traverse.traverse(scene, jnp.asarray(o), jnp.asarray(d),
-                                   interpret=True, block=BLOCK)
+                                   interpret=True)
     assert p.shape == t.shape == u.shape == w.shape == (R,)
     assert p.dtype == jnp.int32 and t.dtype == jnp.float32
     occ = traverse.traverse(scene, jnp.asarray(o), jnp.asarray(d),
-                            mode="any", t_max=10.0, interpret=True,
-                            block=BLOCK)
+                            mode="any", t_max=10.0, interpret=True)
     assert occ.shape == (R,) and occ.dtype == jnp.bool_
     bp, _, _, _ = intersect.closest_hit_bruteforce(
         jnp.asarray(o), jnp.asarray(d), *tri)
@@ -178,7 +177,7 @@ def test_wrapper_padding_and_shapes(R):
     (dict(mode="nearest"), "mode"),
     (dict(mode="after"), "t_lo"),
     (dict(t_lo=jnp.zeros(4), prim_lo=jnp.zeros(4, jnp.int32)), "t_lo"),
-    (dict(block=48), "power of two"),
+    (dict(mode="after", prim_lo=jnp.zeros(4, jnp.int32)), "t_lo"),
 ])
 def test_wrapper_rejects_bad_arguments(kwargs, match):
     v, f = scenes.icosphere(subdiv=1)
